@@ -1,0 +1,188 @@
+"""The PyTorch port's cost volumes and warp against the JAX package's.
+
+On the CPU the port's wrappers run their plain versions; those are held
+against the JAX XLA functions in float32 and against the Pallas kernels in
+interpret mode, on inputs made with numpy from a seed. The CUDA kernels
+themselves are held against their plain versions on the card by
+``test_torch_cuda.py``.
+"""
+
+import os
+import subprocess
+import sys
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from m4depth_tpu.geometry import Camera as JCamera
+from m4depth_tpu.ops import cost_volume as jcv
+from m4depth_tpu.ops.sncv_pallas import spatial_cost_volume_pallas
+from m4depth_tpu.ops.warp import dense_image_warp as jax_warp
+from m4depth_tpu_torch.geometry import Camera
+from m4depth_tpu_torch.ops import (
+    DSCV_KERNEL,
+    SNCV_KERNEL,
+    _build,
+    dense_image_warp,
+    parallax_sweeping_cv,
+    parallax_sweeping_cv_fused,
+    spatial_cost_volume,
+    spatial_cost_volume_fused,
+)
+from torch_inputs import dscv_inputs as _dscv_inputs
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _t(x):
+    return torch.from_numpy(np.ascontiguousarray(x))
+
+
+def _jax_dscv(fn, args, cuts, cv_dtype, **kw):
+    c1, c2, para, centre, rot, trans, f, c = (jnp.asarray(a) for a in args)
+    return fn(c1, c2, para, centre, rot, trans, JCamera(f, c), 4,
+              num_cuts=cuts, cv_dtype=cv_dtype, **kw)
+
+
+def _torch_dscv(fn, args, cuts, cv_dtype, device="cpu"):
+    c1, c2, para, centre, rot, trans, f, c = (_t(a).to(device) for a in args)
+    return fn(c1, c2, para, centre, rot, trans, Camera(f, c), 4, cuts,
+              cv_dtype)
+
+
+# -- warp ---------------------------------------------------------------
+
+
+def test_dense_image_warp_matches_jax():
+    rng = np.random.RandomState(0)
+    img = rng.randn(2, 3, 9, 11, 5).astype(np.float32)
+    flow = rng.uniform(-4, 4, (2, 3, 9, 11, 2)).astype(np.float32)
+    np.testing.assert_allclose(
+        dense_image_warp(_t(img), _t(flow)).numpy(),
+        np.asarray(jax_warp(jnp.asarray(img), jnp.asarray(flow))),
+        rtol=1e-5, atol=1e-6)
+
+
+# -- SNCV ---------------------------------------------------------------
+
+
+@pytest.mark.parametrize("same", [True, False], ids=["c1_is_c2", "c1_ne_c2"])
+@pytest.mark.parametrize("cuts", [1, 2, 4])
+def test_sncv_plain_matches_xla(cuts, same):
+    """float32 on both sides; only the channel-sum order differs."""
+    rng = np.random.RandomState(cuts)
+    c1 = rng.randn(2, 9, 10, 8).astype(np.float32)
+    c2 = c1 if same else rng.randn(2, 9, 10, 8).astype(np.float32)
+    j1 = jnp.asarray(c1)
+    t1 = _t(c1)
+    ref = jcv.spatial_cost_volume(j1, j1 if same else jnp.asarray(c2), 3,
+                                  num_cuts=cuts, cv_dtype=jnp.float32)
+    out = spatial_cost_volume(t1, t1 if same else _t(c2), 3, cuts,
+                              torch.float32)
+    assert out.shape == (2, 9, 10, 49 * cuts)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref),
+                               rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("same", [True, False], ids=["c1_is_c2", "c1_ne_c2"])
+@pytest.mark.parametrize("cuts", [1, 4])
+def test_sncv_plain_matches_pallas_interpret(cuts, same):
+    """The Pallas kernel in interpret mode, at the tolerance of the JAX
+    package's own Pallas-vs-XLA test."""
+    rng = np.random.RandomState(10 + cuts)
+    c1 = rng.randn(1, 8, 12, 8).astype(np.float32)
+    c2 = c1 if same else rng.randn(1, 8, 12, 8).astype(np.float32)
+    ref = spatial_cost_volume_pallas(jnp.asarray(c1), jnp.asarray(c2), 3,
+                                     num_cuts=cuts, cv_dtype=jnp.float32,
+                                     interpret=True)
+    t1 = _t(c1)
+    out = spatial_cost_volume(t1, t1 if same else _t(c2), 3, cuts,
+                              torch.float32)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref),
+                               rtol=1e-4, atol=1e-5)
+
+
+# -- DSCV ---------------------------------------------------------------
+
+
+@pytest.mark.parametrize("cuts", [1, 2])
+def test_dscv_plain_matches_reference_formulation(cuts):
+    """float32: the per-cut correlations and channel 4 (the centre
+    hypothesis) of the JAX warped parallax, to float32 rounding."""
+    args = _dscv_inputs(cuts=cuts, seed=cuts)
+    cv_ref, pw_ref = _jax_dscv(jcv.parallax_sweeping_cv, args, cuts,
+                               jnp.float32)
+    cv, pw = _torch_dscv(parallax_sweeping_cv, args, cuts, torch.float32)
+    assert cv.shape == (2, 12, 16, 9 * cuts) and pw.shape == (2, 12, 16, 1)
+    np.testing.assert_allclose(cv.numpy(), np.asarray(cv_ref),
+                               rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(pw.numpy(), np.asarray(pw_ref)[..., 4:5],
+                               rtol=1e-5, atol=1e-5)
+
+
+def test_dscv_plain_matches_pallas_fused_bf16():
+    """bf16 against the serving path the port replaces, at 48x64 so the
+    Pallas reduce runs (in interpret mode). Tolerance of the JAX package's
+    fused-vs-split test: the Pallas path rounds its bilinear weights and
+    partial products to bf16, the port keeps them in float32."""
+    args = _dscv_inputs(b=1, h=48, w=64, C=16, cuts=2, seed=5)
+    cv_ref, pw_ref = _jax_dscv(jcv.parallax_sweeping_cv_fused, args, 2,
+                               jnp.bfloat16)
+    cv, pw = _torch_dscv(parallax_sweeping_cv, args, 2, torch.bfloat16)
+    np.testing.assert_allclose(cv.numpy(), np.asarray(cv_ref),
+                               rtol=2e-2, atol=6e-3)
+    np.testing.assert_allclose(pw.numpy(), np.asarray(pw_ref),
+                               rtol=2e-2, atol=3e-2)
+
+
+# -- wrappers and build on the CPU ---------------------------------------
+
+
+def test_wrappers_take_plain_path_on_cpu():
+    sncv_before, dscv_before = SNCV_KERNEL.launches, DSCV_KERNEL.launches
+    args = _dscv_inputs(cuts=2)
+    c1 = _t(args[0])
+    np.testing.assert_array_equal(
+        spatial_cost_volume_fused(c1, c1, 3, 2, torch.bfloat16).numpy(),
+        spatial_cost_volume(c1, c1, 3, 2, torch.bfloat16).numpy())
+    for a, b in zip(_torch_dscv(parallax_sweeping_cv_fused, args, 2,
+                                torch.bfloat16),
+                    _torch_dscv(parallax_sweeping_cv, args, 2,
+                                torch.bfloat16)):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
+    assert SNCV_KERNEL.launches == sncv_before == 0
+    assert DSCV_KERNEL.launches == dscv_before == 0
+
+
+def test_kernel_modules_import_without_nvcc(tmp_path):
+    """Importing builds nothing: no compiler is needed until a launch."""
+    env = dict(os.environ, PATH=str(tmp_path), CUDA_HOME=str(tmp_path),
+               PYTHONPATH=REPO)
+    code = ("import torch, m4depth_tpu_torch.ops as ops;"
+            "x = torch.ones(1, 4, 4, 2);"
+            "ops.spatial_cost_volume_fused(x, x, 1, 1, torch.float32);"
+            "assert ops.SNCV_KERNEL.launches == 0")
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_missing_nvcc_raises(tmp_path, monkeypatch):
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.nvcc()
+
+
+def test_failed_build_raises(tmp_path, monkeypatch):
+    """A compiler that fails leaves no library and raises: no fallback."""
+    failing = tmp_path / "nvcc"
+    failing.write_text("#!/bin/sh\necho 'error: refused' >&2\nexit 1\n")
+    failing.chmod(0o755)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build, "nvcc", lambda: str(failing))
+    with pytest.raises(RuntimeError, match="sncv.cu: nvcc exited 1"):
+        _build.build(["sncv.cu"])
+    assert not list((tmp_path / "build").glob("*.so"))
