@@ -13,9 +13,9 @@ from typing import Optional, Union
 
 import torch
 
-from m4depth_tpu_torch.config import AblationFlags, ModelConfig
+from m4depth_tpu_torch.config import AblationFlags, ModelConfig, TrainConfig
 
-__all__ = ["AblationFlags", "ModelConfig", "resolve_device"]
+__all__ = ["AblationFlags", "ModelConfig", "TrainConfig", "resolve_device"]
 
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None

@@ -1,8 +1,9 @@
-"""Model configuration of the PyTorch port.
+"""Model and optimisation configuration of the PyTorch port.
 
-The serving fields of ``m4depth_tpu.config.ModelConfig`` and the whole of
-``AblationFlags``, copied so that this package imports nothing of the JAX
-one. The JAX package's TPU layout knobs (``dscv_*``, ``sncv_impl``,
+The model fields of ``m4depth_tpu.config.ModelConfig``, the whole of
+``AblationFlags`` and the optimisation fields of ``TrainConfig``, copied so
+that this package imports nothing of the JAX one. The JAX package's TPU
+layout knobs (``dscv_*``, ``sncv_impl``,
 ``scan_unroll``, ``remat*``, ``time_axis``) have no counterpart: which
 implementation of a cost volume runs is decided by the device its inputs
 lie on.
@@ -16,6 +17,7 @@ from typing import Tuple
 import torch
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+DEPTH_TYPES = ("map", "velodyne")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,6 +43,7 @@ class ModelConfig:
     search_range: int = 4             # DSCV: 2*4+1 = 9 parallax hypotheses
     sncv_search_range: int = 3        # SNCV: 7x7 = 49 spatial offsets
     leaky_slope: float = 0.1
+    depth_type: str = "map"           # "map" (dense gt) or "velodyne" (sparse gt)
     ablation: AblationFlags = dataclasses.field(default_factory=AblationFlags)
     compute_dtype: str = "float32"    # conv dtype: "float32" | "bfloat16"
     cv_dtype: str = "bfloat16"        # dtype the cost-volume inputs are rounded to
@@ -50,6 +53,9 @@ class ModelConfig:
             if getattr(self, name) not in DTYPES:
                 raise ValueError(f"{name} must be one of {sorted(DTYPES)}, "
                                  f"got {getattr(self, name)!r}")
+        if self.depth_type not in DEPTH_TYPES:
+            raise ValueError(f"depth_type must be one of {DEPTH_TYPES}, "
+                             f"got {self.depth_type!r}")
 
     @property
     def channels(self) -> Tuple[int, ...]:
@@ -66,3 +72,15 @@ class ModelConfig:
     def num_cuts(self, level: int) -> int:
         """Number of feature sub-vectors at 1-indexed pyramid ``level``."""
         return 2 ** (level // 2) if self.ablation.subdivide_features else 1
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Optimisation settings (the reference's Adam at 1e-4 for 220k
+    steps)."""
+
+    learning_rate: float = 1e-4
+    lr_schedule: str = "constant"     # "constant" | "staircase" (halve at
+                                      # 60k/120k/180k/240k/300k) | "cosine"
+    grad_clip_norm: float = 0.0       # global-norm gradient clip; 0 = off
+    total_steps: int = 220_000

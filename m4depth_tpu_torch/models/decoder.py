@@ -1,8 +1,10 @@
 """Decoder pyramid level: parallax refinement with temporal memory.
 Counterpart of ``m4depth_tpu/models/decoder.py``.
 
-The temporal memory is an explicit ``LevelState`` passed in and out, and a
-trajectory reset is a per-batch-element mask.
+The temporal memory is an explicit ``LevelState`` passed in and out. A
+trajectory reset is either a per-batch-element mask (streaming) or, on the
+first frame of a training window, a statically different computation that
+runs no cost volume.
 """
 
 from __future__ import annotations
@@ -142,11 +144,11 @@ class DecoderLevel(nn.Module):
         self,
         curr_f: torch.Tensor,
         deeper_est: Optional[LevelEstimate],
-        state: LevelState,
+        state: Optional[LevelState],
         rot: torch.Tensor,
         trans: torch.Tensor,
         camera: Camera,
-        new_traj: torch.Tensor,
+        new_traj: Optional[torch.Tensor],
     ) -> Tuple[LevelEstimate, LevelState]:
         """Run one level for one frame.
 
@@ -154,8 +156,11 @@ class DecoderLevel(nn.Module):
           curr_f: [b,h,w,C] this level's encoder features (raw).
           deeper_est: the next-deeper level's estimate this frame, or None at
             the deepest level.
-          state: the previous frame's memory.
-          new_traj: [b] bool, per-element trajectory reset.
+          state: the previous frame's memory, or None when this frame starts
+            every sequence of the batch (a training window's frame 0): the
+            level then returns the reset estimate and runs no cost volume.
+          new_traj: [b] bool, per-element trajectory reset, or None when no
+            element resets (training windows).
         """
         cfg, abl = self.cfg, self.cfg.ablation
         b, h, w, _ = curr_f.shape
@@ -164,6 +169,11 @@ class DecoderLevel(nn.Module):
 
         prev_l = (self.initial_deeper_estimate(curr_f) if deeper_est is None
                   else self.upsample_deeper(deeper_est, h, w))
+        if state is None:
+            return prev_l, LevelState(
+                f_maps=curr_f,
+                depth=torch.full((b, h, w, 1), INIT_DEPTH,
+                                 dtype=torch.float32, device=curr_f.device))
 
         curr_p = prep_features(curr_f, cuts, abl.normalize_features)
         prev_p = prep_features(state.f_maps, cuts, abl.normalize_features)
@@ -192,11 +202,18 @@ class DecoderLevel(nn.Module):
         parallax = torch.exp(torch.clamp(out[..., :1], -7.0, 7.0)) / self.lvl_mul
         depth = parallax_to_depth(parallax, rot, trans, camera)
 
+        # the feature memory is not detached: the gradient of the next
+        # frame's c2 reaches this frame's encoder (the depth memory is
+        # detached by prev_depth_to_parallax)
+        est = LevelEstimate(depth=depth, parallax=parallax,
+                            other=out[..., 1:])
+        if new_traj is None:
+            return est, LevelState(f_maps=curr_f, depth=depth)
         mask = new_traj.reshape(b, 1, 1, 1)
         est = LevelEstimate(
             depth=torch.where(mask, prev_l.depth, depth),
             parallax=torch.where(mask, prev_l.parallax, parallax),
-            other=torch.where(mask, prev_l.other, out[..., 1:]))
+            other=torch.where(mask, prev_l.other, est.other))
         # on a reset the feature memory is curr_f either way; only the depth
         # memory is masked
         new_state = LevelState(

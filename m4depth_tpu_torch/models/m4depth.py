@@ -1,6 +1,7 @@
-"""M4Depth top level: recurrent encoder/decoder pyramid, streaming inference.
-Counterpart of ``m4depth_tpu/models/m4depth.py`` (``level_shape``,
-``init_state``, ``forward_frame``, ``step``, ``final_depth``).
+"""M4Depth top level: recurrent encoder/decoder pyramid, training windows and
+streaming inference. Counterpart of ``m4depth_tpu/models/m4depth.py``
+(``level_shape``, ``init_state``, ``forward_frame``, ``__call__`` as
+``forward``, ``loss``, ``step``, ``final_depth``).
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ import torch.nn as nn
 from m4depth_tpu_torch import resolve_device
 from m4depth_tpu_torch.config import ModelConfig
 from m4depth_tpu_torch.geometry import Camera, resize_nearest, scale_camera
+from m4depth_tpu_torch.losses import m4depth_loss
 from m4depth_tpu_torch.models.decoder import (
     INIT_DEPTH,
     DecoderLevel,
@@ -76,15 +78,18 @@ class M4Depth(nn.Module):
 
     def forward_frame(
         self,
-        state: ModelState,
+        state: Optional[ModelState],
         rgb: torch.Tensor,
         rot: torch.Tensor,
         trans: torch.Tensor,
         camera: Camera,
-        new_traj: torch.Tensor,
+        new_traj: Optional[torch.Tensor],
+        first: bool = False,
     ) -> Tuple[ModelState, Pyramid]:
         """One frame through the encoder and the decoder pyramid (deepest
-        to finest); ``new_traj`` [b] resets elements of the batch."""
+        to finest). ``new_traj`` [b] resets elements of the batch (None:
+        none resets); ``first=True`` marks the frame as the start of every
+        sequence of the batch, and ``state`` is then not read."""
         num_levels = self.cfg.num_levels
         f_pyr = self.encoder(rgb)
         new_states: List[Optional[LevelState]] = [None] * num_levels
@@ -93,9 +98,33 @@ class M4Depth(nn.Module):
         for idx in reversed(range(num_levels)):
             cam_l = scale_camera(camera, 2.0 ** (idx + 1))
             deeper, new_states[idx] = self.levels[idx](
-                f_pyr[idx], deeper, state[idx], rot, trans, cam_l, new_traj)
+                f_pyr[idx], deeper, None if first else state[idx], rot,
+                trans, cam_l, new_traj)
             ests[idx] = deeper
         return tuple(new_states), ests
+
+    def forward(
+        self,
+        rgb_seq: torch.Tensor,     # [b, T, h, w, 3]
+        rot_seq: torch.Tensor,     # [b, T, 3|4]
+        trans_seq: torch.Tensor,   # [b, T, 3]
+        camera: Camera,
+    ) -> List[Pyramid]:
+        """A training or evaluation window whose frame 0 starts every
+        sequence: one pyramid per frame, finest level first."""
+        state: Optional[ModelState] = None
+        outs: List[Pyramid] = []
+        for t in range(rgb_seq.shape[1]):
+            state, pyr = self.forward_frame(
+                state, rgb_seq[:, t], rot_seq[:, t], trans_seq[:, t], camera,
+                new_traj=None, first=(t == 0))
+            outs.append(pyr)
+        return outs
+
+    def loss(self, gt_depth_seq: torch.Tensor,
+             preds: Sequence[Pyramid]) -> torch.Tensor:
+        """The training loss of a window (``losses.m4depth_loss``)."""
+        return m4depth_loss(gt_depth_seq, preds, self.cfg.depth_type)
 
     @staticmethod
     def final_depth(preds: Sequence[Pyramid], hw) -> torch.Tensor:

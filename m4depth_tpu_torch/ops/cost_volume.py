@@ -1,13 +1,17 @@
-"""Parallax-sweeping cost volume (DSCV): the fused CUDA kernel and its plain
+"""Parallax-sweeping cost volume (DSCV): the fused CUDA kernels and the plain
 PyTorch version.
 
 ``parallax_sweeping_cv_fused`` is what the model calls. On CPU tensors it
 runs ``parallax_sweeping_cv``, the plain version (a port of the reference
 formulation ``m4depth_tpu/ops/cost_volume.py::parallax_sweeping_cv``: warp
-c2 once per hypothesis, correlate); on CUDA tensors it launches
-``csrc/dscv.cu`` (which replaces the TPU kernel
-``m4depth_tpu/ops/dscv_pallas.py::_reduce_kernel`` and the gather around it)
-or raises.
+c2 once per hypothesis, correlate), and autograd differentiates it. On CUDA
+tensors it launches ``csrc/dscv.cu``'s ``dscv_forward`` (which replaces the
+TPU kernel ``m4depth_tpu/ops/dscv_pallas.py::_reduce_kernel`` and the gather
+around it) through ``DSCVFunction`` or raises; the Function's backward
+launches ``dscv_backward`` (the counterpart
+of ``m4depth_tpu/ops/dscv_bwd_pallas.py::_grad_kernel``: the whole VJP of
+the forward, since the port has no expanded map). Its plain version is
+autograd through ``parallax_sweeping_cv``.
 
 Both round c1, c2 and the previous parallax to ``cv_dtype`` (as the JAX
 paths do) and then sample, multiply and sum in float32. Both return only
@@ -24,12 +28,15 @@ import torch
 from m4depth_tpu_torch.geometry.camera import Camera
 from m4depth_tpu_torch.geometry.parallax import parallax_sweep_flows
 from m4depth_tpu_torch.ops._build import CudaKernel, check_kernel_inputs
-from m4depth_tpu_torch.ops.sncv import KERNEL_DTYPES
+from m4depth_tpu_torch.ops.sncv import KERNEL_DTYPES, _is_bf16, _stream
 from m4depth_tpu_torch.ops.warp import dense_image_warp
 
 DSCV_KERNEL = CudaKernel(
     "dscv.cu", "dscv_forward",
     [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+DSCV_BACKWARD_KERNEL = CudaKernel(
+    "dscv.cu", "dscv_backward",
+    [ctypes.c_void_p] * 14 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
 
 
 def parallax_sweeping_cv(
@@ -74,6 +81,74 @@ def parallax_sweeping_cv(
     return cv, para_center
 
 
+def _dscv_forward(a, bb, para, centre, rot, trans, f, c, search_range: int,
+                  num_cuts: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch ``dscv_forward`` on checked inputs."""
+    b, h, w, C = a.shape
+    s = 2 * search_range + 1
+    cv = torch.empty((b, h, w, num_cuts * s), dtype=torch.float32,
+                     device=a.device)
+    para_center = torch.empty((b, h, w, 1), dtype=torch.float32,
+                              device=a.device)
+    DSCV_KERNEL.launch(
+        a.data_ptr(), bb.data_ptr(), para.data_ptr(), centre.data_ptr(),
+        rot.data_ptr(), trans.data_ptr(), f.data_ptr(), c.data_ptr(),
+        cv.data_ptr(), para_center.data_ptr(), b, h, w, C, num_cuts,
+        search_range, rot.shape[1], _is_bf16(a), _stream(a))
+    return cv, para_center
+
+
+def _dscv_backward(a, bb, para, centre, rot, trans, f, c, dcv, dpara_out,
+                   search_range: int, num_cuts: int, want_dpara: bool):
+    """Launch ``dscv_backward``: (dc1, dc2, dpara or None, dcentre), each in
+    its input's dtype, from the forward's inputs and its outputs'
+    gradients. dc2 and dpara accumulate in zeroed float32 scratch."""
+    b, h, w, C = a.shape
+    dcv = dcv.float().contiguous()
+    dpara_out = dpara_out.float().contiguous()
+    dc1 = torch.empty_like(a)
+    dc2 = torch.zeros(a.shape, dtype=torch.float32, device=a.device)
+    dcentre = torch.empty_like(centre)
+    dpara = (torch.zeros(para.shape, dtype=torch.float32, device=a.device)
+             if want_dpara else None)
+    DSCV_BACKWARD_KERNEL.launch(
+        a.data_ptr(), bb.data_ptr(), para.data_ptr(), centre.data_ptr(),
+        rot.data_ptr(), trans.data_ptr(), f.data_ptr(), c.data_ptr(),
+        dcv.data_ptr(), dpara_out.data_ptr(), dc1.data_ptr(), dc2.data_ptr(),
+        dcentre.data_ptr(), None if dpara is None else dpara.data_ptr(),
+        b, h, w, C, num_cuts, search_range, rot.shape[1], _is_bf16(a),
+        _stream(a))
+    return (dc1, dc2.to(bb.dtype),
+            None if dpara is None else dpara.to(para.dtype), dcentre)
+
+
+class DSCVFunction(torch.autograd.Function):
+    """The fused DSCV kernel with its backward kernel: gradients for c1, c2,
+    the previous parallax and the sweep centre (inputs already rounded to
+    the cost-volume dtype; the casts stay outside, so autograd casts the
+    gradients back). The motion and the camera get none: the Function
+    raises if any of them requires grad."""
+
+    @staticmethod
+    def forward(ctx, a, bb, para, centre, rot, trans, f, c,
+                search_range: int, num_cuts: int):
+        if any(ctx.needs_input_grad[4:8]):
+            raise ValueError("dscv: the CUDA kernel gives no gradient for "
+                             "rot, trans or the camera, and one of them "
+                             "requires grad")
+        cv, para_center = _dscv_forward(a, bb, para, centre, rot, trans, f,
+                                        c, search_range, num_cuts)
+        ctx.save_for_backward(a, bb, para, centre, rot, trans, f, c)
+        ctx.args = (search_range, num_cuts)
+        return cv, para_center
+
+    @staticmethod
+    def backward(ctx, dcv, dpara_out):
+        grads = _dscv_backward(*ctx.saved_tensors, dcv, dpara_out, *ctx.args,
+                               want_dpara=ctx.needs_input_grad[2])
+        return grads + (None,) * 6
+
+
 def parallax_sweeping_cv_fused(
     c1: torch.Tensor,
     c2: torch.Tensor,
@@ -87,7 +162,9 @@ def parallax_sweeping_cv_fused(
     cv_dtype: torch.dtype = torch.bfloat16,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """DSCV: the fused CUDA kernel on CUDA tensors, the plain version on CPU
-    ones. Same arguments and results as :func:`parallax_sweeping_cv`."""
+    ones. Same arguments and results as :func:`parallax_sweeping_cv`. On
+    CUDA tensors the results carry ``DSCVFunction``'s graph when an input
+    requires grad."""
     inputs = (c1, c2, para_prev_t, para_sweep_center, rot, trans, camera.f,
               camera.c)
     if all(t.device.type == "cpu" for t in inputs):
@@ -120,15 +197,5 @@ def parallax_sweeping_cv_fused(
     motion = tuple(t.float().contiguous()
                    for t in (rot, trans, camera.f, camera.c))
     check_kernel_inputs("dscv", motion, (torch.float32,), c1.device)
-    s = 2 * search_range + 1
-    cv = torch.empty((b, h, w, num_cuts * s), dtype=torch.float32,
-                     device=c1.device)
-    para_center = torch.empty((b, h, w, 1), dtype=torch.float32,
-                              device=c1.device)
-    DSCV_KERNEL.launch(
-        a.data_ptr(), bb.data_ptr(), para.data_ptr(),
-        para_sweep_center.data_ptr(), *(t.data_ptr() for t in motion),
-        cv.data_ptr(), para_center.data_ptr(), b, h, w, C, num_cuts,
-        search_range, rot.shape[1], int(cv_dtype == torch.bfloat16),
-        torch.cuda.current_stream(c1.device).cuda_stream)
-    return cv, para_center
+    return DSCVFunction.apply(a, bb, para, para_sweep_center, *motion,
+                              search_range, num_cuts)

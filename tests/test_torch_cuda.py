@@ -7,35 +7,45 @@ GPU host without JAX it runs as
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q -m cuda
 
-Each kernel is held against its plain PyTorch version on the same inputs.
+Each kernel is held against its plain PyTorch version on the same inputs;
+each backward kernel against autograd of the plain forward.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from m4depth_tpu_torch.config import ModelConfig
+from m4depth_tpu_torch.config import ModelConfig, TrainConfig
 from m4depth_tpu_torch.geometry import Camera
 from m4depth_tpu_torch.models import M4Depth, init_state
 from m4depth_tpu_torch.ops import (
+    DSCV_BACKWARD_KERNEL,
     DSCV_KERNEL,
+    SNCV_BACKWARD_KERNEL,
     SNCV_KERNEL,
     parallax_sweeping_cv,
     parallax_sweeping_cv_fused,
     spatial_cost_volume,
     spatial_cost_volume_fused,
 )
+from m4depth_tpu_torch.testing import (
+    DSCV_CV_TOL,
+    DSCV_PARA_TOL,
+    MODEL_TOL,
+    SNCV_TOL,
+    STEP_LOSS_RTOL,
+    assert_dscv_grads_close,
+    assert_sncv_grads_close,
+    assert_train_step_close,
+    tie_free_pixels,
+)
+from m4depth_tpu_torch.train import make_optimizer, make_train_step
 from torch_inputs import dscv_inputs, norm_cuts
 
 pytestmark = pytest.mark.cuda
 
-# Both sides round their inputs to the dtype and multiply and add in
-# float32. The SNCV sums the same products in another order; the DSCV
-# kernel also computes its sample positions inline, which moves them by a
-# few float32 ulps, and the bilinear sample is continuous in the position.
-SNCV_TOL = dict(rtol=1e-5, atol=1e-6)
-DSCV_CV_TOL = dict(rtol=1e-4, atol=2e-5)
-DSCV_PARA_TOL = dict(rtol=1e-4, atol=5e-4)
+# The tolerances, and why, are in m4depth_tpu_torch/testing.py: chip_smoke.py
+# holds the kernels to the same ones.
 
 
 @pytest.fixture
@@ -131,6 +141,131 @@ def test_model_on_card_matches_cpu(cuda):
                 states[d], rgb.to(d), rot.to(d), trans.to(d),
                 Camera(f.to(d), f.to(d)), new_traj.to(d))
         torch.testing.assert_close(depth["cuda"].cpu(), depth["cpu"],
-                                   rtol=1e-3, atol=1e-4)
+                                   **MODEL_TOL)
     assert (SNCV_KERNEL.launches - before[0],
             DSCV_KERNEL.launches - before[1]) == (12, 12)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("same", [True, False], ids=["c1_is_c2", "c1_ne_c2"])
+@pytest.mark.parametrize("shape,cuts", [((2, 20, 24, 16), 1),
+                                        ((3, 6, 6, 192), 8)])
+def test_sncv_backward_kernel_matches_plain(cuda, shape, cuts, same, dtype):
+    rng = np.random.RandomState(1)
+    c1 = torch.from_numpy(norm_cuts(rng.randn(*shape), cuts)).to(cuda, dtype)
+    c2 = c1 if same else torch.from_numpy(
+        norm_cuts(rng.randn(*shape), cuts)).to(cuda, dtype)
+    g = torch.from_numpy(rng.randn(*shape[:3], 49 * cuts).astype(
+        np.float32)).to(cuda)
+    grads, launched = [], []
+    for fn in (spatial_cost_volume_fused, spatial_cost_volume):
+        a = c1.detach().clone().requires_grad_()
+        b = a if same else c2.detach().clone().requires_grad_()
+        before = SNCV_BACKWARD_KERNEL.launches
+        (fn(a, b, 3, cuts, dtype) * g).sum().backward()
+        torch.cuda.synchronize()
+        launched.append(SNCV_BACKWARD_KERNEL.launches - before)
+        grads.append([a.grad] if same else [a.grad, b.grad])
+    assert launched == [1, 0]
+    assert_sncv_grads_close(*grads, dtype, same)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rot_dim", [3, 4])
+@pytest.mark.parametrize("cuts", [1, 4])
+def test_dscv_backward_kernel_matches_plain(cuda, cuts, rot_dim, dtype):
+    """Every input gradient: c1, c2, the previous parallax, the centre."""
+    args = dscv_inputs(h=24, w=20, C=16, cuts=cuts, rot_dim=rot_dim, seed=3)
+    rng = np.random.RandomState(4)
+    gcv = torch.from_numpy(rng.randn(2, 24, 20, 9 * cuts).astype(
+        np.float32)).to(cuda)
+    gpw = torch.from_numpy(rng.randn(2, 24, 20, 1).astype(np.float32)).to(cuda)
+    c1, c2, para, centre, rot, trans, f, c = (
+        torch.from_numpy(a).to(cuda) for a in args)
+    cam = Camera(f, c)
+    grads = []
+    for fn in (parallax_sweeping_cv_fused, parallax_sweeping_cv):
+        ins = [t.detach().clone().requires_grad_()
+               for t in (c1.to(dtype), c2.to(dtype), para, centre)]
+        before = DSCV_BACKWARD_KERNEL.launches
+        cv, pw = fn(*ins, rot, trans, cam, 4, cuts, dtype)
+        ((cv * gcv).sum() + (pw * gpw).sum()).backward()
+        torch.cuda.synchronize()
+        grads.append([t.grad for t in ins])
+        if fn is parallax_sweeping_cv_fused:
+            assert DSCV_BACKWARD_KERNEL.launches == before + 1
+    mask = tie_free_pixels(centre, rot, trans, cam, 4)
+    assert mask.float().mean() > 0.9
+    assert_dscv_grads_close(*grads, dtype, mask)
+
+
+def test_fused_wrappers_carry_gradients(cuda):
+    """Both wrappers return a graph when an input requires grad (they once
+    returned a bare tensor, so no gradient reached c1, c2 or the centre),
+    and none under no_grad or when no input requires grad."""
+    args = dscv_inputs(b=1, h=8, w=8, C=4)
+    c1, c2, para, centre, rot, trans, f, c = (
+        torch.from_numpy(a).to(cuda) for a in args)
+    x = c1.clone().requires_grad_()
+    assert spatial_cost_volume_fused(x, x, 3, 1, torch.float32).grad_fn
+    cen = centre.clone().requires_grad_()
+    cv, pw = parallax_sweeping_cv_fused(c1, c2, para, cen, rot, trans,
+                                        Camera(f, c), 4, 1, torch.float32)
+    assert cv.grad_fn is not None and pw.grad_fn is not None
+    with torch.no_grad():
+        assert spatial_cost_volume_fused(x, x, 3, 1, torch.float32).grad_fn \
+            is None
+    assert parallax_sweeping_cv_fused(
+        c1, c2, para, centre, rot, trans, Camera(f, c), 4, 1,
+        torch.float32)[0].grad_fn is None
+
+
+def test_dscv_raises_when_motion_requires_grad(cuda):
+    args = dscv_inputs(b=1, h=8, w=8, C=4)
+    c1, c2, para, centre, rot, trans, f, c = (
+        torch.from_numpy(a).to(cuda) for a in args)
+    with pytest.raises(ValueError, match="no gradient for rot"):
+        parallax_sweeping_cv_fused(
+            c1.requires_grad_(), c2, para, centre, rot.requires_grad_(),
+            trans, Camera(f, c), 4, 1, torch.float32)
+
+
+def test_train_step_on_card_matches_cpu(cuda):
+    """One training step of a d4 model at 64x64 (b=2, T=3), card (kernels)
+    against CPU (plain versions), float32 with TF32 off: the loss, every
+    gradient and the parameters after the Adam step. The encoder's
+    gradient is non-zero on the card: it arrives through the kernels."""
+    cfg = ModelConfig(num_levels=4, encoder_channels=(8, 12, 16, 16),
+                      refiner_prep_channels=(16, 16, 8),
+                      refiner_est_channels=(8, 8, 5),
+                      compute_dtype="float32", cv_dtype="float32")
+    b, T, hw = 2, 3, 64
+    rng = np.random.RandomState(5)
+    batch = {
+        "rgb": rng.rand(b, T, hw, hw, 3).astype(np.float32),
+        "depth": (1 + 60 * rng.rand(b, T, hw, hw, 1)).astype(np.float32),
+        "rot": np.tile(np.array([1.0, 0.001, -0.002, 0.001], np.float32),
+                       (b, T, 1)),
+        "trans": np.tile(np.array([0.3, 0.1, 0.02], np.float32), (b, T, 1)),
+        "camera_f": np.full((b, 2), hw / 2, np.float32),
+        "camera_c": np.full((b, 2), hw / 2, np.float32),
+    }
+    out, grads, params = {}, {}, {}
+    launches = [k.launches for k in (DSCV_BACKWARD_KERNEL,
+                                     SNCV_BACKWARD_KERNEL)]
+    for dev in ("cpu", "cuda"):
+        model = M4Depth(cfg, device=dev, seed=7)
+        opt = make_optimizer(model, TrainConfig(learning_rate=1e-4))
+        out[dev] = make_train_step(model, opt)(
+            {k: torch.from_numpy(v).to(dev) for k, v in batch.items()})
+        grads[dev] = {n: p.grad.cpu() for n, p in model.named_parameters()}
+        params[dev] = {n: p.detach().cpu()
+                       for n, p in model.named_parameters()}
+    assert [k.launches for k in (DSCV_BACKWARD_KERNEL,
+                                 SNCV_BACKWARD_KERNEL)] == [
+        n + 2 * cfg.num_levels for n in launches]
+    torch.testing.assert_close(out["cuda"]["loss"].cpu(), out["cpu"]["loss"],
+                               rtol=STEP_LOSS_RTOL, atol=0)
+    assert_train_step_close(grads["cuda"], grads["cpu"], params["cuda"],
+                            params["cpu"], lr=1e-4)
+    assert float(grads["cuda"]["encoder.conv_s1.0.weight"].abs().max()) > 0

@@ -7,6 +7,7 @@ themselves are held against their plain versions on the card by
 ``test_torch_cuda.py``.
 """
 
+import functools
 import os
 import subprocess
 import sys
@@ -30,6 +31,11 @@ from m4depth_tpu_torch.ops import (
     parallax_sweeping_cv_fused,
     spatial_cost_volume,
     spatial_cost_volume_fused,
+)
+from m4depth_tpu_torch.testing import (
+    assert_dscv_grads_close,
+    assert_sncv_grads_close,
+    tie_free_pixels,
 )
 from torch_inputs import dscv_inputs as _dscv_inputs
 
@@ -135,6 +141,134 @@ def test_dscv_plain_matches_pallas_fused_bf16():
                                rtol=2e-2, atol=6e-3)
     np.testing.assert_allclose(pw.numpy(), np.asarray(pw_ref),
                                rtol=2e-2, atol=3e-2)
+
+
+# -- gradients ------------------------------------------------------------
+
+
+def _jax_sncv_grads(c1, c2, g, cuts, same):
+    import jax
+
+    def loss(a, b):
+        cv = jcv.spatial_cost_volume(a, a if same else b, 3, num_cuts=cuts,
+                                     cv_dtype=jnp.float32)
+        return (cv * jnp.asarray(g)).sum()
+
+    return jax.grad(loss, argnums=(0, 1))(jnp.asarray(c1), jnp.asarray(c2))
+
+
+@pytest.mark.parametrize("same", [True, False], ids=["c1_is_c2", "c1_ne_c2"])
+@pytest.mark.parametrize("cuts", [1, 2])
+def test_sncv_gradients_match_jax(cuts, same):
+    """Autograd of the plain SNCV (the plain version of the backward
+    kernel) against jax.grad of the XLA SNCV, float32. With c1 is c2 the
+    two gradients add up."""
+    rng = np.random.RandomState(20 + cuts)
+    c1 = rng.randn(2, 9, 10, 8).astype(np.float32)
+    c2 = c1 if same else rng.randn(2, 9, 10, 8).astype(np.float32)
+    g = rng.randn(2, 9, 10, 49 * cuts).astype(np.float32)
+    jd1, jd2 = _jax_sncv_grads(c1, c2, g, cuts, same)
+    ref = [np.asarray(jd1)] if same else [np.asarray(jd1), np.asarray(jd2)]
+
+    t1 = _t(c1).requires_grad_()
+    t2 = t1 if same else _t(c2).requires_grad_()
+    out = spatial_cost_volume(t1, t2, 3, cuts, torch.float32)
+    (out * _t(g)).sum().backward()
+    got = [t1.grad] if same else [t1.grad, t2.grad]
+    for a, r in zip(got, ref):
+        np.testing.assert_allclose(a.numpy(), r, rtol=1e-5, atol=1e-6)
+
+
+def _dscv_grad_inputs(cuts):
+    """The JAX package's gradient-parity setup (test_cost_volume.py): 10x10,
+    C=4, r=4, lateral-and-forward motion, centres in [0.5, 3]."""
+    rng = np.random.RandomState(11 + cuts)
+    b, h, w, C = 1, 10, 10, 4
+    rot = np.array([[1.0, 0.01, -0.02, 0.0]], np.float32)
+    rot /= np.linalg.norm(rot)
+    return dict(
+        c1=rng.randn(b, h, w, C).astype(np.float32),
+        c2=rng.randn(b, h, w, C).astype(np.float32),
+        para=rng.uniform(0.5, 2, (b, h, w, 1)).astype(np.float32),
+        centre=rng.uniform(0.5, 3, (b, h, w, 1)).astype(np.float32),
+        rot=rot, trans=np.array([[0.3, 0.1, 0.6]], np.float32),
+        f=np.full((b, 2), 8.0, np.float32), c=np.full((b, 2), 5.0, np.float32),
+        gcv=rng.randn(b, h, w, 9 * cuts).astype(np.float32),
+        gpw=rng.randn(b, h, w, 1).astype(np.float32))
+
+
+@pytest.mark.parametrize("cuts", [1, 2])
+def test_dscv_gradients_match_jax(cuts):
+    """Autograd of the plain DSCV (the reference the backward kernel is held
+    to on the card) against jax.grad of the gather formulation and of the
+    split formulation whose backward runs the Pallas ``_grad_kernel`` (in
+    interpret mode), for c1, c2 and the sweep centre (and the previous
+    parallax, against the gather formulation), float32. Tolerance of the
+    JAX package's own gradient-parity test."""
+    import jax
+
+    x = _dscv_grad_inputs(cuts)
+    cam = JCamera(jnp.asarray(x["f"]), jnp.asarray(x["c"]))
+
+    def jloss(fn, c1, c2, para, centre):
+        cv, pw = fn(c1, c2, para, centre, jnp.asarray(x["rot"]),
+                    jnp.asarray(x["trans"]), cam, 4, num_cuts=cuts,
+                    cv_dtype=jnp.float32)
+        return (cv * x["gcv"]).sum() + (pw[..., 4:5] * x["gpw"]).sum()
+
+    jin = [jnp.asarray(x[k]) for k in ("c1", "c2", "para", "centre")]
+    ref_gather = jax.grad(lambda *a: jloss(jcv.parallax_sweeping_cv, *a),
+                          argnums=(0, 1, 2, 3))(*jin)
+    split = functools.partial(jcv.parallax_sweeping_cv_split, n_chunks=3,
+                              bwd_impl="pallas")
+    ref_pallas = jax.grad(lambda *a: jloss(split, *a),
+                          argnums=(0, 1, 3))(*jin)
+
+    tin = [_t(x[k]).requires_grad_() for k in ("c1", "c2", "para", "centre")]
+    cv, pw = parallax_sweeping_cv(
+        *tin, _t(x["rot"]), _t(x["trans"]), Camera(_t(x["f"]), _t(x["c"])),
+        4, cuts, torch.float32)
+    ((cv * _t(x["gcv"])).sum() + (pw * _t(x["gpw"])).sum()).backward()
+    for t, r in zip(tin, ref_gather):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(r),
+                                   rtol=1e-3, atol=1e-4)
+    for t, r in zip((tin[0], tin[1], tin[3]), ref_pallas):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(r),
+                                   rtol=1e-3, atol=1e-4)
+    assert np.abs(tin[3].grad.numpy()).max() > 1e-3
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_backward_comparison_rules(dtype):
+    """The rules that hold the backward kernels against autograd on the
+    card (``m4depth_tpu_torch.testing``), on CPU tensors. Without motion
+    every DSCV sample lies on a pixel, so no pixel is tie-free; with the
+    tests' motion most are. Equal gradients pass; a gradient off by more
+    than its tolerance fails, named."""
+    args = [_t(a) for a in _dscv_inputs(h=12, w=16, C=8, cuts=2)]
+    c1, c2, para, centre, rot, trans, f, c = args
+    cam = Camera(f, c)
+    still = tie_free_pixels(centre, torch.tensor([[1.0, 0, 0, 0]] * 2),
+                            torch.zeros(2, 3), cam, 4)
+    assert not still.any()
+    mask = tie_free_pixels(centre, rot, trans, cam, 4)
+    assert mask.shape == (2, 12, 16, 1) and mask.float().mean() > 0.9
+
+    ins = [t.to(dtype).requires_grad_() for t in (c1, c2)] + [
+        t.clone().requires_grad_() for t in (para, centre)]
+    cv, pw = parallax_sweeping_cv(*ins, rot, trans, cam, 4, 2, dtype)
+    grads = torch.autograd.grad((cv.sum(), pw.sum()), ins)
+    assert assert_dscv_grads_close(grads, grads, dtype, mask) == [0.0] * 4
+    bumped = list(grads)
+    bumped[1] = grads[1] + 0.05 * grads[1].abs().max()
+    with pytest.raises(AssertionError, match="dscv dc2"):
+        assert_dscv_grads_close(bumped, grads, dtype, mask)
+
+    a = c1.to(dtype).requires_grad_()
+    g = torch.autograd.grad(spatial_cost_volume(a, a, 3, 2, dtype).sum(), a)
+    assert assert_sncv_grads_close(g, g, dtype, same=True) == [0.0]
+    with pytest.raises(AssertionError, match="sncv dc1"):
+        assert_sncv_grads_close([g[0] * 1.05], g, dtype, same=True)
 
 
 # -- wrappers and build on the CPU ---------------------------------------
