@@ -19,7 +19,7 @@ exits non-zero and prints no result line:
    every input gradient;
 4. the d6 model at 128x128 (b=2, 3 frames, one per-element reset) on the
    card (kernels) against the same weights on the CPU (plain versions),
-   in float32;
+   in float32, on the card once with cuDNN and once without it;
 5. one training step of the d6 model at 128x128 (b=2, T=3), card against
    CPU, float32, from four seeds: the loss, every gradient, the parameters
    after Adam; and, to show where a gap comes from, the card's step with
@@ -36,7 +36,8 @@ exits non-zero and prints no result line:
    each kernel's launches (18 per step of each of the four); then a
    profiler window over training steps;
 9. each forward kernel's device time at each level shape (b=1, serving),
-   beside its plain version's time and its bound;
+   beside its plain version's time and its bound, and the DSCV forward's
+   time on the inputs one serving frame gave it;
 10. each kernel's device time at each level shape with b=3 (training),
    beside its plain version's time and its bound;
 11. one JSON line listing the four kernels, then the result line
@@ -157,10 +158,19 @@ def phase_environment() -> None:
         + ", ".join(p.name for p in libs.values()))
     for src in libs:
         build_log = _build.BUILD_DIR / f"{src.rsplit('.', 1)[0]}.log"
-        if build_log.exists():
-            for line in build_log.read_text().splitlines():
-                if "registers" in line or "spill" in line:
-                    log(f"  ptxas {src}: {line.strip()}")
+        if not build_log.exists():
+            continue
+        # per kernel: "Function properties for <name>", its stack and spill
+        # line, then its registers
+        name = spill = ""
+        for line in build_log.read_text().splitlines():
+            if "Function properties for" in line:
+                name = line.split("Function properties for", 1)[1].strip()
+            elif "spill" in line:
+                spill = line.strip()
+            elif "registers" in line:
+                log(f"  ptxas {src} {name}: "
+                    f"{line.split(':', 1)[1].strip()}; {spill}")
 
 
 # -- level shapes and inputs --------------------------------------------------
@@ -327,7 +337,10 @@ def phase_backward_vs_plain(cfg: ModelConfig, dev) -> dict:
 
 def phase_model_card_vs_cpu(dev) -> None:
     """d6 at 128x128, b=2, 3 frames, element 0 reset at frame 2: depth from
-    the card (kernels) against the CPU (plain versions), same weights."""
+    the card (kernels) against the CPU (plain versions), same weights. The
+    card runs twice: with cuDNN, and with cuDNN off, where the convs return
+    NCHW memory and the decoder must still hand the kernels (which refuse
+    strided inputs) contiguous NHWC features."""
     cfg = ModelConfig(compute_dtype="float32", cv_dtype="float32")
     b, hw = 2, 128
     g = torch.Generator().manual_seed(11)
@@ -335,29 +348,40 @@ def phase_model_card_vs_cpu(dev) -> None:
     rot = torch.tensor([[1.0, 0.001, -0.002, 0.001]] * b)
     trans = torch.tensor([[0.3, 0.1, 0.02]] * b)
     f = torch.full((b, 2), hw / 2.0)
-    models = {d: M4Depth(cfg, device=d, seed=2) for d in ("cpu", dev)}
-    states = {d: init_state(cfg, b, hw, hw, device=d) for d in models}
+    # (name, device, cuDNN context); flags() sets every cuDNN flag, so TF32
+    # is named to stay off
+    runs = (("cpu", "cpu", contextlib.nullcontext),
+            ("card", dev, contextlib.nullcontext),
+            ("card, cuDNN off", dev, lambda: torch.backends.cudnn.flags(
+                enabled=False, allow_tf32=False)))
+    models = {name: M4Depth(cfg, device=d, seed=2) for name, d, _ in runs}
+    states = {name: init_state(cfg, b, hw, hw, device=d)
+              for name, d, _ in runs}
     before = {k: kern.launches for k, kern in KERNELS.items()}
     for t in range(3):
         new_traj = torch.tensor([t in (0, 2), t == 0])
         depth = {}
-        for d, m in models.items():
-            states[d], depth[d] = m.step(
-                states[d], frames[t].to(d), rot.to(d), trans.to(d),
-                Camera(f.to(d), f.to(d)), new_traj.to(d))
-        card = depth[dev].cpu()
-        check(card.shape == (b, hw, hw, 1)
-              and bool(torch.isfinite(card).all()),
-              f"card depth {card.shape}, finite")
-        torch.testing.assert_close(card, depth["cpu"], **MODEL_TOL)
-        log(f"  frame {t}: max|depth card - cpu| "
-            f"{max_abs_err(card, depth['cpu']):.3e} (depth "
-            f"{depth['cpu'].min().item():.4g}.."
+        for name, d, ctx in runs:
+            with ctx():
+                states[name], depth[name] = models[name].step(
+                    states[name], frames[t].to(d), rot.to(d), trans.to(d),
+                    Camera(f.to(d), f.to(d)), new_traj.to(d))
+        errs = []
+        for name in ("card", "card, cuDNN off"):
+            card = depth[name].cpu()
+            check(card.shape == (b, hw, hw, 1)
+                  and bool(torch.isfinite(card).all()),
+                  f"{name} depth {card.shape}, finite")
+            torch.testing.assert_close(card, depth["cpu"], **MODEL_TOL)
+            errs.append(f"{name} {max_abs_err(card, depth['cpu']):.3e}")
+        log(f"  frame {t}: max|depth card - cpu| " + ", ".join(errs)
+            + f" (depth {depth['cpu'].min().item():.4g}.."
             f"{depth['cpu'].max().item():.4g})")
     for k, kern in KERNELS.items():
         n = kern.launches - before[k]
-        want = 3 * cfg.num_levels if k in FORWARD else 0
-        check(n == want, f"{k}: {n} launches in 3 frames, expected {want}")
+        want = 2 * 3 * cfg.num_levels if k in FORWARD else 0
+        check(n == want, f"{k}: {n} launches in 2 x 3 frames on the card, "
+              f"expected {want}")
 
 
 # -- phase 5 ----------------------------------------------------------------
@@ -391,6 +415,23 @@ def plain_cost_volumes():
     finally:
         (decoder.parallax_sweeping_cv_fused,
          decoder.spatial_cost_volume_fused) = fused
+
+
+@contextlib.contextmanager
+def captured_dscv_inputs(calls: dict):
+    """The decoder's DSCV calls record their arguments in ``calls``, by the
+    level's (h, w), and run as before."""
+    fused = decoder.parallax_sweeping_cv_fused
+
+    def record(*args):
+        calls[tuple(args[0].shape[1:3])] = args
+        return fused(*args)
+
+    decoder.parallax_sweeping_cv_fused = record
+    try:
+        yield
+    finally:
+        decoder.parallax_sweeping_cv_fused = fused
 
 
 def phase_train_card_vs_cpu(dev) -> None:
@@ -506,6 +547,11 @@ def zero_launch_counts() -> None:
 def phase_main_path(dev):
     """Streaming d6 384x384 bf16. The launch counts are zeroed just before
     the first frame and read just after the last one."""
+    # what earlier phases left allocated (the cuBLAS workspace of phase 4's
+    # cuDNN-off convs, say) counts in the peak; the path's own memory
+    # (weights, inputs, state, activations) is the peak above it
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
     cfg = ModelConfig(compute_dtype="bfloat16")
     model = M4Depth(cfg, device=dev, seed=0)
     x = main_path_inputs(dev)
@@ -546,7 +592,9 @@ def phase_main_path(dev):
         f"(blocks {', '.join(f'{v:.4f}' for v in block_ms)}; "
         f"min {min(block_ms):.4f}, max {max(block_ms):.4f}); "
         f"{1e3 / med:.2f} frames/s")
-    log(f"  peak device memory {peak} bytes ({peak / 2**20:.1f} MiB)")
+    log(f"  peak device memory {peak} bytes ({peak / 2**20:.1f} MiB), "
+        f"{peak - base} bytes ({(peak - base) / 2**20:.1f} MiB) above the "
+        f"{base} allocated before the model was made")
     log(f"  launches: " + ", ".join(
         f"{k} {n} ({n // n_frames}/frame)" for k, n in launches.items()))
     log(f"  depth range {depth.min().item():.4g}..{depth.max().item():.4g}")
@@ -614,6 +662,8 @@ def phase_train_path(dev):
     b=3, T=4, bf16/bf16, Adam at 1e-4, on a seeded batch with bench's
     motion. The launch counts are zeroed just before the first step and
     read just after the last one."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
     cfg = ModelConfig(compute_dtype="bfloat16", cv_dtype="bfloat16")
     model = M4Depth(cfg, device=dev, seed=0)
     step = make_train_step(model, make_optimizer(
@@ -650,7 +700,9 @@ def phase_train_path(dev):
         f"{', '.join(f'{v:.4f}' for v in block_ms)}; min "
         f"{min(block_ms):.4f}, max {max(block_ms):.4f}); "
         f"{1e3 / med * TRAIN_B:.2f} windows/s")
-    log(f"  peak device memory {peak} bytes ({peak / 2**30:.2f} GiB)")
+    log(f"  peak device memory {peak} bytes ({peak / 2**30:.2f} GiB), "
+        f"{peak - base} bytes ({(peak - base) / 2**30:.2f} GiB) above the "
+        f"{base} allocated before the model was made")
     log(f"  launches: " + ", ".join(
         f"{k} {n} ({n // n_steps}/step)" for k, n in launches.items()))
     log("  loss by step: " + ", ".join(f"{sc['loss']:.6f}" for sc in scalars))
@@ -776,11 +828,14 @@ def kernel_cases(x, cuts: int, C: int, n_pix: int, dtype, with_backward):
 
 
 def phase_kernel_times(cfg: ModelConfig, dev, b: int, with_backward: bool,
-                       calls_per_level: int) -> dict:
+                       calls_per_level: int, model_dscv=None) -> dict:
     """Each kernel's device time per call at each level shape with batch b,
     in the paths' dtype (bf16), beside its plain version's time and its
     bound; totals are per frame (b=1) or per step (b=3: each level runs
-    ``calls_per_level`` times a step)."""
+    ``calls_per_level`` times a step). The inputs are random, with sweep
+    centres in [0.5, 4.5] and some far out; ``model_dscv`` (the DSCV's
+    arguments from one serving frame, by level shape) adds the DSCV
+    forward's time on the inputs the model gave it."""
     dtype = cfg.torch_cv_dtype
     names = FORWARD + (BACKWARD if with_backward else ())
     totals = {k: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, t_bytes=0.0,
@@ -812,8 +867,27 @@ def phase_kernel_times(cfg: ModelConfig, dev, b: int, with_backward: bool,
                 f"kernel {ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} us, "
                 f"bound {b_ms * 1e3:.3f} us ({b_by}; {d['nbytes']} B, "
                 f"{d['flops']} flop), {100 * b_ms / ms:.1f}% of bound")
+        if model_dscv is not None:
+            args = model_dscv[(h, w)]
+            ms = device_ms(lambda: parallax_sweeping_cv_fused(*args), 100)
+            row["dscv_forward"]["model_inputs_ms"] = ms
+            totals["dscv_forward"]["model_inputs_ms"] = (
+                totals["dscv_forward"].get("model_inputs_ms", 0.0)
+                + ms * calls_per_level)
+            centre = args[3]
+            log(f"  level {level} b={b} {h}x{w} dscv_forward on the model's "
+                f"own inputs (sweep centres "
+                f"{centre.min().item():.4g}..{centre.max().item():.4g}): "
+                f"kernel {ms * 1e3:.2f} us")
         levels.append(row)
     log(json.dumps({"kernel_levels": levels}))
+    unit = "frame" if calls_per_level == 1 else "step"
+    for name, t in totals.items():
+        extra = (f", {t['model_inputs_ms'] * 1e3:.1f} us on the model's own "
+                 "inputs" if "model_inputs_ms" in t else "")
+        log(f"  {name}: {t['ms'] * 1e3:.1f} us/{unit} (bound "
+            f"{t['bound_ms'] * 1e3:.2f} us, {100 * t['bound_ms'] / t['ms']:.1f}"
+            f"% of bound; plain {t['plain_ms'] * 1e3:.1f} us){extra}")
     return totals
 
 
@@ -869,9 +943,15 @@ def main() -> int:
     log("   profile of the training path")
     phase_profile(train["run"], PROFILED_STEPS, "step")
     log("== phase 9: forward kernel device times per level shape, b=1 "
-        "(serving), bf16; no single PyTorch call computes either op, so "
+        "(serving), bf16, on random inputs and (DSCV) on one serving "
+        "frame's; no single PyTorch call computes either op, so "
         "library_ms is null")
-    serving_totals = phase_kernel_times(serving, dev, 1, False, 1)
+    model_dscv = {}
+    with captured_dscv_inputs(model_dscv):
+        serve["run"]()
+    check(len(model_dscv) == serving.num_levels, "one DSCV call a level")
+    serving_totals = phase_kernel_times(serving, dev, 1, False, 1,
+                                        model_dscv)
     log(f"== phase 10: kernel device times per level shape, b={TRAIN_B} "
         f"(training), bf16; per step each level runs {TRAIN_T - 1} times")
     totals = phase_kernel_times(serving, dev, TRAIN_B, True, TRAIN_T - 1)

@@ -3,7 +3,8 @@
 Each level is a stride-1 3x3 conv (with domain-invariant normalization at
 level 0), leaky-relu, a stride-2 3x3 conv and leaky-relu; output i has
 stride 2**(i+1). Tensors are NHWC at every interface; the convs see them
-as channels-last NCHW views, which cuDNN takes without a copy.
+as channels-last NCHW views, which cuDNN takes without a copy, and return
+contiguous NHWC tensors on any conv backend.
 
 The JAX ``FirstConv`` (a TPU lane trick: 9 shifts and a matmul) is the same
 function as an ordinary 3x3 conv with the same kernel, which is what runs
@@ -71,7 +72,10 @@ class Conv3x3(nn.Module):
         y = F.conv2d(x.permute(0, 3, 1, 2), self.weight.to(x.dtype),
                      self.bias.to(x.dtype), stride=self.stride,
                      padding=(pt, pl))
-        return y.permute(0, 2, 3, 1)
+        # cuDNN returns channels-last here, so this copies nothing; a
+        # backend that returns NCHW (cuDNN off, a strided input) would
+        # otherwise hand the cost-volume kernels a strided view
+        return y.permute(0, 2, 3, 1).contiguous()
 
 
 class DomainNorm(nn.Module):

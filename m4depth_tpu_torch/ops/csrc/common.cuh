@@ -1,0 +1,117 @@
+// Device helpers shared by the cost-volume kernels (sncv.cu, dscv.cu): input
+// types widened to float32, 16-byte vector loads, and the coalesced store of
+// a block's staged outputs.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+namespace {
+
+__device__ __forceinline__ float to_float(float v) { return v; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+// Elements of T in one 16-byte vector.
+template <typename T>
+constexpr int kVec = 16 / sizeof(T);
+
+inline bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+// VEC consecutive elements of T: VEC is kVec<T> (one 16-byte load, from an
+// address aligned to 16 bytes) or 1 (one scalar load). `load_raw` reads
+// them as they are stored (Raw), `unpack` widens them to float32, `load`
+// does both. A kernel that keeps many loads in flight holds them as Raw.
+template <typename T, int VEC>
+struct Vec;
+
+template <>
+struct Vec<float, 1> {
+  using Raw = float;
+  static __device__ __forceinline__ Raw load_raw(const float* p) {
+    return __ldg(p);
+  }
+  static __device__ __forceinline__ void unpack(Raw v, float* f) { f[0] = v; }
+  static __device__ __forceinline__ void load(const float* p, float* f) {
+    unpack(load_raw(p), f);
+  }
+};
+
+template <>
+struct Vec<float, 4> {
+  using Raw = float4;
+  static __device__ __forceinline__ Raw load_raw(const float* p) {
+    return __ldg(reinterpret_cast<const float4*>(p));
+  }
+  static __device__ __forceinline__ void unpack(Raw v, float* f) {
+    f[0] = v.x;
+    f[1] = v.y;
+    f[2] = v.z;
+    f[3] = v.w;
+  }
+  static __device__ __forceinline__ void load(const float* p, float* f) {
+    unpack(load_raw(p), f);
+  }
+};
+
+// A bfloat16 is the upper half of the float32 with the same value, and the
+// element at the lower address sits in the lower half of each word.
+template <>
+struct Vec<__nv_bfloat16, 1> {
+  using Raw = unsigned short;
+  static __device__ __forceinline__ Raw load_raw(const __nv_bfloat16* p) {
+    return *reinterpret_cast<const unsigned short*>(p);
+  }
+  static __device__ __forceinline__ void unpack(Raw v, float* f) {
+    f[0] = __uint_as_float((unsigned)v << 16);
+  }
+  static __device__ __forceinline__ void load(const __nv_bfloat16* p,
+                                              float* f) {
+    unpack(load_raw(p), f);
+  }
+};
+
+template <>
+struct Vec<__nv_bfloat16, 8> {
+  using Raw = uint4;
+  static __device__ __forceinline__ Raw load_raw(const __nv_bfloat16* p) {
+    return __ldg(reinterpret_cast<const uint4*>(p));
+  }
+  static __device__ __forceinline__ void unpack(Raw v, float* f) {
+    const unsigned u[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      f[2 * i] = __uint_as_float(u[i] << 16);
+      f[2 * i + 1] = __uint_as_float(u[i] & 0xffff0000u);
+    }
+  }
+  static __device__ __forceinline__ void load(const __nv_bfloat16* p,
+                                              float* f) {
+    unpack(load_raw(p), f);
+  }
+};
+
+// The block's threads copy n floats from shared memory to dst, neighbouring
+// threads on neighbouring addresses, as 16-byte vectors when dst is aligned
+// to 16 bytes (src, shared memory, always is).
+__device__ __forceinline__ void store_block(float* __restrict__ dst,
+                                            const float* __restrict__ src,
+                                            int n) {
+  int i = threadIdx.x;
+  if ((reinterpret_cast<uintptr_t>(dst) & 15) == 0) {
+    const int n4 = n >> 2;
+    for (; i < n4; i += blockDim.x)
+      reinterpret_cast<float4*>(dst)[i] =
+          reinterpret_cast<const float4*>(src)[i];
+    i = (n4 << 2) + threadIdx.x;
+  }
+  for (; i < n; i += blockDim.x) dst[i] = src[i];
+}
+
+}  // namespace

@@ -16,24 +16,56 @@
 //     para_out[p] = bilinear(para_prev_t, q_0)
 // The bilinear sample clips the floor to [0, size-2] and the fraction to
 // [0, 1], as dense_image_warp does. proj, delta and rho (the epipolar terms
-// of geometry/parallax.py) are computed here per thread from the motion and
+// of geometry/parallax.py) are computed here per pixel from the motion and
 // the camera as the caller holds them: rot [b, 3] (small angle) or [b, 4]
 // (quaternion, geometry/rotations.py), trans [b, 3], f and c [b, 2]. So the
-// wrapper launches nothing but this kernel.
+// wrapper launches nothing but this kernel, after a cast of para_prev_t
+// where the caller holds it in another type than c1's.
 //
-// What bounds it on the H100: bytes. Per pixel it must read C values of c1
-// and of c2, the sweep centre and the previous parallax, and write
-// (2r+1)*cuts floats; its 4 taps x 9 hypotheses re-read c2 36 times, but
-// from L1/L2, not device memory, since the taps of neighbouring pixels
-// overlap. The flops (about 8 per tap channel) stay far below the card's
-// float32 rate.
+// What bounds it on the H100. Bytes, by the count that matters for a
+// bound: per pixel C values of c1 and of c2, the sweep centre and the
+// previous parallax read, (2r+1)*cuts + 1 floats written (4 MB at level 1
+// of d6 384x384, b=1: 1.2 us at 3.35 TB/s). The four taps x 9 hypotheses
+// re-read c2 36 times, but from L1, since neighbouring pixels' taps
+// overlap. In practice the time is latency and issue: each pixel's chain
+// runs from the motion's loads through the epipolar terms (about 60
+// flops, two divisions and a square root) and nine sample positions to
+// the taps' loads, and every tap channel costs an unpack and a
+// multiply-add on the CUDA cores. At the deep levels (6x6 to 24x24) the
+// chain alone sets the time.
 //
-// Design: one thread per (pixel, cut, hypothesis), numbered in the output's
-// own order, so neighbouring threads write neighbouring floats. Each thread
-// recomputes the rotation and the pixel's epipolar terms (about 60 flops,
-// cheaper than reading them) and keeps one float32 sum: no per-pixel state
-// lives in registers or shared memory. Loads are scalar; widening them to
-// 16 bytes is the first step towards the bound.
+// Forward design (`dscv_forward_kernel`):
+// - Threads of a pixel: `lanes` over the channels of a cut (each a 16-byte
+//   vector: 8 bfloat16 or 4 float32), x the cuts, x `slices` of the 2r+1
+//   hypotheses (slice s takes s, s + slices, ...); a power of two, pixel-
+//   major, so a pixel's threads share one warp or fill whole warps.
+// - Geometry. Each thread computes its pixel's epipolar terms and the
+//   sample positions of its own hypotheses, with the same device functions
+//   as the backward (`epipolar`, `sample_position`): the gradient
+//   differentiates exactly the forward's positions. A warp issues each
+//   instruction once for its 32 lanes, so the lanes of one pixel cost no
+//   more than one lane would, and a shuffle broadcast would only add
+//   instructions; no barrier stands before the loads.
+// - Correlations. A thread keeps its vector of c1 in registers (loaded
+//   before the geometry, so its latency hides there), takes its hypotheses
+//   three at a time with all their 16-byte tap loads in flight together,
+//   sums per channel the products of c1 with each of the four taps and
+//   applies the bilinear weights to those sums; the lanes of a cut add up
+//   by shuffles. The centre hypothesis's thread also warps the previous
+//   parallax (para_out), with its loads in flight beside the taps'.
+// - Stores. Each cut's mean goes to the block's output rows in shared
+//   memory; after one barrier the block writes its pixels' rows, one
+//   contiguous range of cv, with 16-byte stores.
+// - Split by level shape. The grid should fill the card but stay within
+//   one wave of resident threads (about 96K on 132 SMs at this kernel's
+//   registers): a second, partial wave costs more than it gives. From one
+//   lane a cut and one slice, the launch doubles the slices up to 4, then
+//   the lanes up to the cut's vectors, then the slices up to 8, while the
+//   grid stays within that wave; blocks hold 128 threads' worth of pixels.
+//   At d6 384x384 in bfloat16, b=1, that gives a pixel 2 threads at level
+//   1 (2 slices), 8 at level 2 (2 cuts x 4 slices), 32 at level 3, 128 at
+//   levels 4 and 5 and 256 at level 6 (4 lanes x cuts x 8 slices); at b=3,
+//   level 1 keeps one thread a pixel.
 //
 // Backward (`dscv_backward`). Replaces the TPU kernel `_grad_kernel`
 // (m4depth_tpu/ops/dscv_bwd_pallas.py:49), which only scatters the
@@ -67,14 +99,21 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <algorithm>
+
+#include "common.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 256;  // the backward's block
+// the forward: threads' worth of pixels a block, threads of one pixel at
+// most, slices of the hypotheses at most, and the threads of one wave (the
+// H100's 132 SMs hold 6 of its blocks each at about 80 registers a thread)
+constexpr int kForwardThreads = 128;
+constexpr int kMaxPixelThreads = 512;
+constexpr int kMaxSlices = 8;
+constexpr long long kWaveThreads = 96 * 1024;
 
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
 template <typename T> __device__ __forceinline__ T from_float(float v);
 template <> __device__ __forceinline__ float from_float<float>(float v) {
   return v;
@@ -169,8 +208,18 @@ __device__ __forceinline__ Sample sample_position(const Epipolar& e,
   return sm;
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
+// A sample position as the forward keeps it.
+struct Pos {
+  int tap;        // top-left corner, pixel index over b*h*w
+  float ax, ay;   // bilinear fractions
+};
+
+// Block: P pixels from p0 = blockIdx.x * P, tpp threads each (a power of
+// two), pixel-major; within a pixel, fastest first: channel lane, slice of
+// the hypotheses, cut. Slice s takes hypotheses s, s + slices, ... Shared
+// memory: the block's output rows [P][cuts][S].
+template <typename T, int VEC>
+__global__ void __launch_bounds__(kMaxPixelThreads)
 dscv_forward_kernel(const T* __restrict__ c1, const T* __restrict__ c2,
                     const T* __restrict__ para,
                     const float* __restrict__ centre,
@@ -180,48 +229,131 @@ dscv_forward_kernel(const T* __restrict__ c1, const T* __restrict__ c2,
                     const float* __restrict__ principal,
                     float* __restrict__ cv, float* __restrict__ para_out,
                     int h, int w, int C, int cuts, int r, int rot_dim,
-                    long long total) {
-  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= total) return;
-  const int s = 2 * r + 1;
-  const int k = (int)(idx % s);
-  const long long t = idx / s;
-  const int cut = (int)(t % cuts);
-  const long long p = t / cuts;            // pixel index over b*h*w
-  const int x = (int)(p % w);
-  const int y = (int)((p / w) % h);
-  const long long bi = p / ((long long)w * h);
-  const long long img = bi * h * w;
-
-  const Epipolar e = epipolar(rot, trans, focal, principal, bi, rot_dim, x,
-                              y);
-  const Sample sm = sample_position(e, centre[p], k, r, x, y, w, h, img);
-  const float ax = sm.ax, ay = sm.ay;
-  const long long tap = sm.tap;
-
+                    int n_pix, int P, int lanes, int slices, int tpp) {
+  using V = Vec<T, VEC>;
+  using Raw = typename V::Raw;
+  extern __shared__ __align__(16) float s_out[];
+  const int S = 2 * r + 1;
+  const int t = threadIdx.x;
   const int cc = C / cuts;
-  const T* a = c1 + p * C + cut * cc;
-  const T* tl = c2 + tap * C + cut * cc;
-  const T* tr = tl + C;
-  const T* bl = tl + (long long)w * C;
-  const T* br = bl + C;
-  float acc = 0.f;
-  for (int c = 0; c < cc; ++c) {
-    const float vtl = to_float(tl[c]), vtr = to_float(tr[c]);
-    const float vbl = to_float(bl[c]), vbr = to_float(br[c]);
-    const float top = vtl + (vtr - vtl) * ax;
-    const float bot = vbl + (vbr - vbl) * ax;
-    acc = fmaf(to_float(a[c]), top + (bot - top) * ay, acc);
-  }
-  cv[idx] = acc / (float)cc;
+  const int vpc = cc / VEC;                  // vectors a cut
+  const int slot = t / tpp;
+  const int rem = t - slot * tpp;
+  const int lane = rem & (lanes - 1);
+  const int slice = (rem / lanes) & (slices - 1);
+  const int cut = rem / (lanes * slices);    // >= cuts on padding threads
+  const int p0 = blockIdx.x * P;
+  const int p = p0 + slot;
+  const bool active = p < n_pix && cut < cuts;
 
-  if (cut == 0 && k == r) {
-    const float vtl = to_float(para[tap]), vtr = to_float(para[tap + 1]);
-    const float vbl = to_float(para[tap + w]), vbr = to_float(para[tap + w + 1]);
-    const float top = vtl + (vtr - vtl) * ax;
-    const float bot = vbl + (vbr - vbl) * ax;
-    para_out[p] = top + (bot - top) * ay;
+  // this lane's first vector of c1, loaded first so that its latency hides
+  // behind the geometry
+  const T* a_row = c1 + (long long)(active ? p : 0) * C
+                   + (active ? cut : 0) * cc;
+  Raw a0{};
+  if (active && lane < vpc) a0 = V::load_raw(a_row + lane * VEC);
+
+  // 1. the geometry of this thread's pixel. The threads of a pixel sit in
+  // one warp (tpp <= 32) or fill whole warps, so a warp issues it once for
+  // all the pixels it holds
+  const int pc = min(p, n_pix - 1);
+  const int x = pc % w, y = (pc / w) % h;
+  const int bi = pc / (w * h);
+  const long long img = (long long)bi * h * w;
+  const Epipolar e =
+      epipolar(rot, trans, focal, principal, bi, rot_dim, x, y);
+  const float cen = centre[pc];
+
+  // 2. the correlations of this thread's hypotheses, KC at a time: their
+  // sample positions, then all their loads in flight together. Per
+  // channel, the dot products of c1 with the four taps; the bilinear
+  // weights apply to the sums. The
+  // centre hypothesis's first lane of cut 0 also warps the previous
+  // parallax. Every thread takes part in the shuffles, active or not.
+  constexpr int KC = 3;
+  const float inv_cc = 1.f / (float)cc;
+  const int kps = (S - slice + slices - 1) / slices;   // this slice's
+  const int kmax = (S + slices - 1) / slices;          // slice 0's
+  const long long wC = (long long)w * C;
+  float pv[4] = {0.f, 0.f, 0.f, 0.f};
+  Pos pp{0, 0.f, 0.f};   // the centre hypothesis, for para_out
+  bool has_para = false;
+  for (int i0 = 0; i0 < kmax; i0 += KC) {
+    Pos ps[KC];
+    bool on[KC];
+#pragma unroll
+    for (int i = 0; i < KC; ++i) {
+      const int k = slice + (i0 + i) * slices;
+      on[i] = active && i0 + i < kps;
+      ps[i] = Pos{0, 0.f, 0.f};
+      if (on[i]) {
+        const Sample sm = sample_position(e, cen, k, r, x, y, w, h, img);
+        ps[i] = Pos{(int)sm.tap, sm.ax, sm.ay};
+      }
+      if (on[i] && k == r && cut == 0 && lane == 0) {
+        has_para = true;
+        pp = ps[i];
+        pv[0] = to_float(para[pp.tap]);
+        pv[1] = to_float(para[pp.tap + 1]);
+        pv[2] = to_float(para[pp.tap + w]);
+        pv[3] = to_float(para[pp.tap + w + 1]);
+      }
+    }
+    float part[KC];
+#pragma unroll
+    for (int i = 0; i < KC; ++i) part[i] = 0.f;
+    for (int j = lane; j < vpc; j += lanes) {
+      const Raw ra = j == lane ? a0 : V::load_raw(a_row + j * VEC);
+      Raw v[KC][4];
+#pragma unroll
+      for (int i = 0; i < KC; ++i) {
+        const T* tl = c2 + (long long)ps[i].tap * C + cut * cc + j * VEC;
+        if (on[i]) {
+          v[i][0] = V::load_raw(tl);
+          v[i][1] = V::load_raw(tl + C);
+          v[i][2] = V::load_raw(tl + wC);
+          v[i][3] = V::load_raw(tl + wC + C);
+        } else {
+          v[i][0] = v[i][1] = v[i][2] = v[i][3] = Raw{};
+        }
+      }
+      float a[VEC];
+      V::unpack(ra, a);
+#pragma unroll
+      for (int i = 0; i < KC; ++i) {
+        float d[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int n = 0; n < 4; ++n) {
+          float f[VEC];
+          V::unpack(v[i][n], f);
+#pragma unroll
+          for (int u = 0; u < VEC; ++u) d[n] = fmaf(a[u], f[u], d[n]);
+        }
+        const float ax = ps[i].ax, ay = ps[i].ay;
+        const float top = d[0] + (d[1] - d[0]) * ax;
+        const float bot = d[2] + (d[3] - d[2]) * ax;
+        part[i] += top + (bot - top) * ay;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < KC; ++i) {
+      for (int off = lanes >> 1; off > 0; off >>= 1)
+        part[i] += __shfl_xor_sync(0xffffffffu, part[i], off);
+      if (on[i] && lane == 0)
+        s_out[(slot * cuts + cut) * S + slice + (i0 + i) * slices] =
+            part[i] * inv_cc;
+    }
   }
+  if (has_para) {
+    const float top = pv[0] + (pv[1] - pv[0]) * pp.ax;
+    const float bot = pv[2] + (pv[3] - pv[2]) * pp.ax;
+    para_out[p] = top + (bot - top) * pp.ay;
+  }
+  __syncthreads();
+
+  // the block's rows of cv: one contiguous range
+  const int n = min(P, n_pix - p0);
+  store_block(cv + (long long)p0 * cuts * S, s_out, n * cuts * S);
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -329,23 +461,71 @@ dscv_backward_kernel(const T* __restrict__ c1, const T* __restrict__ c2,
   if (lane == 0) dcentre[p] = dcen;
 }
 
+int pow2_at_least(int n) {
+  int p = 1;
+  while (p < n) p <<= 1;
+  return p;
+}
+
+template <typename T, int VEC>
+cudaError_t launch_forward(const void* c1, const void* c2, const void* para,
+                           const void* centre, const void* rot,
+                           const void* trans, const void* focal,
+                           const void* principal, void* cv, void* para_out,
+                           int b, int h, int w, int C, int cuts, int r,
+                           int rot_dim, cudaStream_t stream) {
+  const int S = 2 * r + 1;
+  const long long n_pix = (long long)b * h * w;
+  // threads of a pixel: lanes x cuts (rounded up to a power of two) x
+  // slices of the hypotheses. From one lane a cut and one slice, the
+  // launch doubles the slices up to 4 (a thread then keeps 3 hypotheses
+  // of 9 or fewer), then the lanes up to the cut's vectors, then the
+  // slices up to 8, while the grid stays within one wave of resident
+  // threads
+  const int cuts_p = pow2_at_least(cuts);
+  const int max_lanes = std::min(32, pow2_at_least(C / cuts / VEC));
+  auto fits = [&](int lanes, int slices) {
+    const int tpp = 2 * lanes * cuts_p * slices;   // after a doubling
+    return n_pix * tpp <= kWaveThreads && tpp <= kMaxPixelThreads;
+  };
+  int lanes = 1, slices = 1;
+  while (slices < std::min(4, S) && fits(lanes, slices)) slices <<= 1;
+  while (lanes < max_lanes && fits(lanes, slices)) lanes <<= 1;
+  while (slices < std::min(kMaxSlices, S) && fits(lanes, slices))
+    slices <<= 1;
+  const int tpp = lanes * cuts_p * slices;
+  if (tpp > kMaxPixelThreads) return cudaErrorInvalidValue;  // too many cuts
+  const int P = std::max(1, kForwardThreads / tpp);
+  const int threads = P * tpp;
+  const size_t smem = (size_t)P * cuts * S * sizeof(float);
+  const long long blocks = (n_pix + P - 1) / P;
+  if (n_pix > 0x7fffffffLL || smem > 48 * 1024)
+    return cudaErrorInvalidValue;
+  dscv_forward_kernel<T, VEC><<<(unsigned)blocks, threads, smem, stream>>>(
+      static_cast<const T*>(c1), static_cast<const T*>(c2),
+      static_cast<const T*>(para), static_cast<const float*>(centre),
+      static_cast<const float*>(rot), static_cast<const float*>(trans),
+      static_cast<const float*>(focal),
+      static_cast<const float*>(principal), static_cast<float*>(cv),
+      static_cast<float*>(para_out), h, w, C, cuts, r, rot_dim, (int)n_pix,
+      P, lanes, slices, tpp);
+  return cudaGetLastError();
+}
+
+// 16-byte loads where every vector of a cut is aligned, else scalar ones.
 template <typename T>
 cudaError_t launch(const void* c1, const void* c2, const void* para,
                    const void* centre, const void* rot, const void* trans,
                    const void* focal, const void* principal, void* cv,
                    void* para_out, int b, int h, int w, int C, int cuts,
                    int r, int rot_dim, cudaStream_t stream) {
-  const long long total = (long long)b * h * w * cuts * (2 * r + 1);
-  const long long blocks = (total + kThreads - 1) / kThreads;
-  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  dscv_forward_kernel<T><<<(unsigned)blocks, kThreads, 0, stream>>>(
-      static_cast<const T*>(c1), static_cast<const T*>(c2),
-      static_cast<const T*>(para), static_cast<const float*>(centre),
-      static_cast<const float*>(rot), static_cast<const float*>(trans),
-      static_cast<const float*>(focal),
-      static_cast<const float*>(principal), static_cast<float*>(cv),
-      static_cast<float*>(para_out), h, w, C, cuts, r, rot_dim, total);
-  return cudaGetLastError();
+  if ((C / cuts) % kVec<T> == 0 && aligned16(c1) && aligned16(c2))
+    return launch_forward<T, kVec<T>>(c1, c2, para, centre, rot, trans,
+                                      focal, principal, cv, para_out, b, h,
+                                      w, C, cuts, r, rot_dim, stream);
+  return launch_forward<T, 1>(c1, c2, para, centre, rot, trans, focal,
+                              principal, cv, para_out, b, h, w, C, cuts, r,
+                              rot_dim, stream);
 }
 
 template <typename T>

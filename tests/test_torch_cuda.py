@@ -11,6 +11,8 @@ Each kernel is held against its plain PyTorch version on the same inputs;
 each backward kernel against autograd of the plain forward.
 """
 
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -64,10 +66,23 @@ def _dscv(fn, args, cuts, dtype, device):
               Camera(f, c), 4, cuts, dtype)
 
 
+# The d6 model's decoder levels at 384x384, (h, w, C, cuts), finest first.
+D6_LEVELS = ((192, 192, 16, 1), (96, 96, 32, 2), (48, 48, 64, 2),
+             (24, 24, 96, 4), (12, 12, 128, 4), (6, 6, 192, 8))
+# Each level shape at b=1 (serving) and b=3 (training); the ragged shapes
+# below add sides that are multiples of no tile or segment.
+LEVEL_SHAPES = [((b, h, w, C), cuts) for b in (1, 3)
+                for h, w, C, cuts in D6_LEVELS]
+LEVEL_IDS = [f"b{b}-{h}x{w}-C{C}-cuts{cuts}"
+             for (b, h, w, C), cuts in LEVEL_SHAPES]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("same", [True, False], ids=["c1_is_c2", "c1_ne_c2"])
-@pytest.mark.parametrize("shape,cuts", [((2, 20, 24, 16), 1),
-                                        ((1, 6, 6, 192), 8)])
+@pytest.mark.parametrize(
+    "shape,cuts",
+    LEVEL_SHAPES + [((2, 20, 24, 16), 1), ((2, 7, 5, 32), 2)],
+    ids=LEVEL_IDS + ["ragged-20x24", "ragged-7x5"])
 def test_sncv_kernel_matches_plain(cuda, shape, cuts, same, dtype):
     rng = np.random.RandomState(0)
     c1 = torch.from_numpy(norm_cuts(rng.randn(*shape), cuts)).to(cuda, dtype)
@@ -84,15 +99,21 @@ def test_sncv_kernel_matches_plain(cuda, shape, cuts, same, dtype):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("rot_dim", [3, 4])
-@pytest.mark.parametrize("cuts", [1, 4])
-def test_dscv_kernel_matches_plain(cuda, cuts, rot_dim, dtype):
-    args = dscv_inputs(h=24, w=20, C=16, cuts=cuts, rot_dim=rot_dim)
+@pytest.mark.parametrize(
+    "shape,cuts",
+    LEVEL_SHAPES + [((2, 24, 20, 16), 1), ((2, 24, 20, 16), 4),
+                    ((2, 7, 5, 16), 2)],
+    ids=LEVEL_IDS + ["ragged-24x20-cuts1", "ragged-24x20-cuts4",
+                     "ragged-7x5"])
+def test_dscv_kernel_matches_plain(cuda, shape, cuts, rot_dim, dtype):
+    b, h, w, C = shape
+    args = dscv_inputs(b=b, h=h, w=w, C=C, cuts=cuts, rot_dim=rot_dim)
     before = DSCV_KERNEL.launches
     cv, para = _dscv(parallax_sweeping_cv_fused, args, cuts, dtype, cuda)
     torch.cuda.synchronize()
     assert DSCV_KERNEL.launches == before + 1
     cv_ref, para_ref = _dscv(parallax_sweeping_cv, args, cuts, dtype, cuda)
-    assert cv.shape == (2, 24, 20, 9 * cuts) and para.shape == (2, 24, 20, 1)
+    assert cv.shape == (b, h, w, 9 * cuts) and para.shape == (b, h, w, 1)
     torch.testing.assert_close(cv, cv_ref, **DSCV_CV_TOL)
     torch.testing.assert_close(para, para_ref, **DSCV_PARA_TOL)
 
@@ -144,6 +165,45 @@ def test_model_on_card_matches_cpu(cuda):
                                    **MODEL_TOL)
     assert (SNCV_KERNEL.launches - before[0],
             DSCV_KERNEL.launches - before[1]) == (12, 12)
+
+
+def test_model_on_card_without_cudnn_matches_cudnn(cuda):
+    """The decoder does not depend on cuDNN's layout: with cuDNN off the
+    card's convs return NCHW memory, and the cost-volume kernels (which
+    refuse strided inputs) must still get contiguous NHWC features. Three
+    frames of a d4 model at 64x64, float32, against the same weights with
+    cuDNN on."""
+    cfg = ModelConfig(num_levels=4, encoder_channels=(8, 12, 16, 16),
+                      refiner_prep_channels=(16, 16, 8),
+                      refiner_est_channels=(8, 8, 5),
+                      compute_dtype="float32", cv_dtype="float32")
+    b, hw = 2, 64
+    rng = np.random.RandomState(6)
+    frames = [torch.from_numpy(rng.rand(b, hw, hw, 3).astype(np.float32)).to(
+        cuda) for _ in range(3)]
+    rot = torch.tensor([[1.0, 0.001, -0.002, 0.001]] * b, device=cuda)
+    trans = torch.tensor([[0.3, 0.1, 0.02]] * b, device=cuda)
+    f = torch.full((b, 2), hw / 2, device=cuda)
+    model = M4Depth(cfg, device=cuda, seed=2)
+    depths = {}
+    for cudnn in (True, False):
+        before = (SNCV_KERNEL.launches, DSCV_KERNEL.launches)
+        # flags() sets every cuDNN flag: TF32 stays off as the fixture set it
+        with (contextlib.nullcontext() if cudnn else
+              torch.backends.cudnn.flags(enabled=False, allow_tf32=False)):
+            state = init_state(cfg, b, hw, hw, device=cuda)
+            depths[cudnn] = []
+            for t, rgb in enumerate(frames):
+                state, depth = model.step(
+                    state, rgb, rot, trans, Camera(f, f.clone()),
+                    torch.tensor([t == 0, t in (0, 2)], device=cuda))
+                depths[cudnn].append(depth)
+            torch.cuda.synchronize()
+        assert (SNCV_KERNEL.launches - before[0],
+                DSCV_KERNEL.launches - before[1]) == (12, 12)
+    for off, on in zip(depths[False], depths[True]):
+        assert bool(torch.isfinite(off).all())
+        torch.testing.assert_close(off, on, **MODEL_TOL)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
