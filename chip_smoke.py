@@ -39,7 +39,9 @@ exits non-zero and prints no result line:
    beside its plain version's time and its bound, and the DSCV forward's
    time on the inputs one serving frame gave it;
 10. each kernel's device time at each level shape with b=3 (training),
-   beside its plain version's time and its bound;
+   beside its plain version's time and its bound; each backward kernel
+   both as called directly and through autograd of its fused wrapper, as
+   the model calls it (the SNCV with c1 is c2);
 11. one JSON line listing the four kernels, then the result line
    ``{"ok": true, "device": {...}}``.
 
@@ -731,9 +733,10 @@ def device_ms(fn, n: int) -> float:
     spin, start, end = (torch.cuda.Event(enable_timing=True)
                         for _ in range(3))
     spin.record()
-    # 3x the host's time, in cycles at the H100's top clock (1.98 GHz); a
-    # lower clock only makes the spin longer
-    torch.cuda._sleep(int((3 * host_s + 0.01) * 2.0e9))
+    # 3x the host's time and 50 ms (autograd's enqueue of a backward varies
+    # by that much from one loop to the next), in cycles at the H100's top
+    # clock (1.98 GHz); a lower clock only makes the spin longer
+    torch.cuda._sleep(int((3 * host_s + 0.05) * 2.0e9))
     start.record()
     t0 = time.perf_counter()
     for _ in range(n):
@@ -791,6 +794,8 @@ def kernel_cases(x, cuts: int, C: int, n_pix: int, dtype, with_backward):
     c1g = c1.clone().requires_grad_()
     out_plain = spatial_cost_volume(c1g, c1g, SPATIAL_SEARCH, cuts, dtype,
                                     LEAKY)
+    out_fused = spatial_cost_volume_fused(c1g, c1g, SPATIAL_SEARCH, cuts,
+                                          dtype, LEAKY)
     cam = Camera(x["f"], x["c"])
     motion = (x["rot"], x["trans"], x["f"], x["c"])
     a, b, para = c1, x["c2"].to(dtype), x["para"].to(dtype)
@@ -798,21 +803,33 @@ def kernel_cases(x, cuts: int, C: int, n_pix: int, dtype, with_backward):
     cv_p, pw_p = parallax_sweeping_cv(ins[0], ins[1], x["para"], ins[2],
                                       x["rot"], x["trans"], cam,
                                       DEPTH_SEARCH, cuts, dtype)
+    cv_f, pw_f = parallax_sweeping_cv_fused(ins[0], ins[1], x["para"], ins[2],
+                                            x["rot"], x["trans"], cam,
+                                            DEPTH_SEARCH, cuts, dtype)
     cases["sncv_backward"] = dict(
         kernel=lambda: _sncv_backward(x["g_sncv"], c1, c1, out,
                                       SPATIAL_SEARCH, cuts, LEAKY),
+        # as the model runs it: autograd through the fused wrapper with
+        # c1 is c2, so an add of two gradients counts where one is made
+        autograd=lambda: torch.autograd.grad(out_fused, c1g, x["g_sncv"],
+                                             retain_graph=True),
         plain=lambda: torch.autograd.grad(out_plain, c1g, x["g_sncv"],
                                           retain_graph=True),
         plain_calls=1,
-        # g and the forward's output (49*cuts float32 each) and one feature
-        # map read, dc1 and dc2 written; per offset and channel two
-        # multiply-adds, per output gradient a select and a scale
-        nbytes=n_pix * (2 * 49 * cuts * 4 + 3 * C * es),
+        # g and the forward's output (49*cuts float32 each) and the feature
+        # map read, its one gradient (c1 is c2) written; per offset and
+        # channel two multiply-adds, per output gradient a select and a
+        # scale
+        nbytes=n_pix * (2 * 49 * cuts * 4 + 2 * C * es),
         flops=n_pix * 49 * (4 * C + 2 * cuts))
     cases["dscv_backward"] = dict(
         kernel=lambda: _dscv_backward(a, b, para, x["centre"], *motion,
                                       x["g_cv"], x["g_para"], DEPTH_SEARCH,
                                       cuts, want_dpara=False),
+        # as the model runs it: autograd through the fused wrapper, with the
+        # wrapper's zeroing and cast of dc2
+        autograd=lambda: torch.autograd.grad(
+            (cv_f, pw_f), ins, (x["g_cv"], x["g_para"]), retain_graph=True),
         plain=lambda: torch.autograd.grad(
             (cv_p, pw_p), ins, (x["g_cv"], x["g_para"]), retain_graph=True),
         plain_calls=1,
@@ -840,6 +857,8 @@ def phase_kernel_times(cfg: ModelConfig, dev, b: int, with_backward: bool,
     names = FORWARD + (BACKWARD if with_backward else ())
     totals = {k: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, t_bytes=0.0,
                       t_ops=0.0) for k in names}
+    for k in BACKWARD if with_backward else ():
+        totals[k]["autograd_ms"] = 0.0
     levels = []
     for spec in level_specs(cfg, b):
         level, h, w, C, cuts = spec[:5]
@@ -863,9 +882,17 @@ def phase_kernel_times(cfg: ModelConfig, dev, b: int, with_backward: bool,
             row[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                              bound_by=b_by, bytes=d["nbytes"],
                              flops=d["flops"])
+            extra = ""
+            if "autograd" in d:
+                # few calls, as for the plain version: each queues a handful
+                # of small kernels besides the kernel
+                ag_ms = device_ms(d["autograd"], 20)
+                t["autograd_ms"] += ag_ms * calls_per_level
+                row[name]["autograd_ms"] = ag_ms
+                extra = f", through autograd {ag_ms * 1e3:.2f} us"
             log(f"  level {level} b={b} {h}x{w} C={C} cuts={cuts} {name}: "
-                f"kernel {ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} us, "
-                f"bound {b_ms * 1e3:.3f} us ({b_by}; {d['nbytes']} B, "
+                f"kernel {ms * 1e3:.2f} us{extra}, plain {plain_ms * 1e3:.2f} "
+                f"us, bound {b_ms * 1e3:.3f} us ({b_by}; {d['nbytes']} B, "
                 f"{d['flops']} flop), {100 * b_ms / ms:.1f}% of bound")
         if model_dscv is not None:
             args = model_dscv[(h, w)]
@@ -885,6 +912,9 @@ def phase_kernel_times(cfg: ModelConfig, dev, b: int, with_backward: bool,
     for name, t in totals.items():
         extra = (f", {t['model_inputs_ms'] * 1e3:.1f} us on the model's own "
                  "inputs" if "model_inputs_ms" in t else "")
+        if "autograd_ms" in t:
+            extra += (f", {t['autograd_ms'] * 1e3:.1f} us through autograd as "
+                      "the model runs it")
         log(f"  {name}: {t['ms'] * 1e3:.1f} us/{unit} (bound "
             f"{t['bound_ms'] * 1e3:.2f} us, {100 * t['bound_ms'] / t['ms']:.1f}"
             f"% of bound; plain {t['plain_ms'] * 1e3:.1f} us){extra}")
@@ -977,6 +1007,9 @@ def main() -> int:
             serving_ms=serving_totals[key]["ms"] if key in FORWARD else None,
             serving_bound_ms=(serving_totals[key]["bound_ms"]
                               if key in FORWARD else None),
+            # per training step, backward kernels only: the same calls made
+            # through autograd of the fused wrapper, as the model makes them
+            autograd_ms=t.get("autograd_ms"),
             passed=True))
         check(kernels[-1]["launches_per_step"] == train["per_step"],
               f"{key} launches per step")

@@ -1,6 +1,7 @@
 // Device helpers shared by the cost-volume kernels (sncv.cu, dscv.cu): input
-// types widened to float32, 16-byte vector loads, and the coalesced store of
-// a block's staged outputs.
+// types widened to float32, 16-byte vector loads and stores, the coalesced
+// store of a block's staged outputs, and the shared-memory limit of a
+// kernel on the current device.
 
 #pragma once
 
@@ -16,6 +17,13 @@ __device__ __forceinline__ float to_float(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
 
+// Two floats rounded to bfloat16 (round to nearest even, as
+// __float2bfloat16), packed with the first in the lower half.
+__device__ __forceinline__ unsigned pack_bf16x2(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&v);
+}
+
 // Elements of T in one 16-byte vector.
 template <typename T>
 constexpr int kVec = 16 / sizeof(T);
@@ -25,9 +33,11 @@ inline bool aligned16(const void* p) {
 }
 
 // VEC consecutive elements of T: VEC is kVec<T> (one 16-byte load, from an
-// address aligned to 16 bytes) or 1 (one scalar load). `load_raw` reads
+// address aligned to 16 bytes), 4 for bfloat16 (one 8-byte load, aligned
+// to 8) or 1 (one scalar load). `load_raw` reads
 // them as they are stored (Raw), `unpack` widens them to float32, `load`
-// does both. A kernel that keeps many loads in flight holds them as Raw.
+// does both; `store` writes VEC floats rounded to T. A kernel that keeps
+// many loads in flight holds them as Raw.
 template <typename T, int VEC>
 struct Vec;
 
@@ -40,6 +50,9 @@ struct Vec<float, 1> {
   static __device__ __forceinline__ void unpack(Raw v, float* f) { f[0] = v; }
   static __device__ __forceinline__ void load(const float* p, float* f) {
     unpack(load_raw(p), f);
+  }
+  static __device__ __forceinline__ void store(float* p, const float* f) {
+    *p = f[0];
   }
 };
 
@@ -58,6 +71,9 @@ struct Vec<float, 4> {
   static __device__ __forceinline__ void load(const float* p, float* f) {
     unpack(load_raw(p), f);
   }
+  static __device__ __forceinline__ void store(float* p, const float* f) {
+    *reinterpret_cast<float4*>(p) = make_float4(f[0], f[1], f[2], f[3]);
+  }
 };
 
 // A bfloat16 is the upper half of the float32 with the same value, and the
@@ -74,6 +90,33 @@ struct Vec<__nv_bfloat16, 1> {
   static __device__ __forceinline__ void load(const __nv_bfloat16* p,
                                               float* f) {
     unpack(load_raw(p), f);
+  }
+  static __device__ __forceinline__ void store(__nv_bfloat16* p,
+                                               const float* f) {
+    *p = __float2bfloat16(f[0]);
+  }
+};
+
+template <>
+struct Vec<__nv_bfloat16, 4> {
+  using Raw = uint2;
+  static __device__ __forceinline__ Raw load_raw(const __nv_bfloat16* p) {
+    return __ldg(reinterpret_cast<const uint2*>(p));
+  }
+  static __device__ __forceinline__ void unpack(Raw v, float* f) {
+    f[0] = __uint_as_float(v.x << 16);
+    f[1] = __uint_as_float(v.x & 0xffff0000u);
+    f[2] = __uint_as_float(v.y << 16);
+    f[3] = __uint_as_float(v.y & 0xffff0000u);
+  }
+  static __device__ __forceinline__ void load(const __nv_bfloat16* p,
+                                              float* f) {
+    unpack(load_raw(p), f);
+  }
+  static __device__ __forceinline__ void store(__nv_bfloat16* p,
+                                               const float* f) {
+    *reinterpret_cast<uint2*>(p) =
+        make_uint2(pack_bf16x2(f[0], f[1]), pack_bf16x2(f[2], f[3]));
   }
 };
 
@@ -95,6 +138,12 @@ struct Vec<__nv_bfloat16, 8> {
                                               float* f) {
     unpack(load_raw(p), f);
   }
+  static __device__ __forceinline__ void store(__nv_bfloat16* p,
+                                               const float* f) {
+    *reinterpret_cast<uint4*>(p) =
+        make_uint4(pack_bf16x2(f[0], f[1]), pack_bf16x2(f[2], f[3]),
+                   pack_bf16x2(f[4], f[5]), pack_bf16x2(f[6], f[7]));
+  }
 };
 
 // The block's threads copy n floats from shared memory to dst, neighbouring
@@ -112,6 +161,26 @@ __device__ __forceinline__ void store_block(float* __restrict__ dst,
     i = (n4 << 2) + threadIdx.x;
   }
   for (; i < n; i += blockDim.x) dst[i] = src[i];
+}
+
+// Lets `Kernel` launch with `bytes` of dynamic shared memory on the current
+// device. Above 48 KB that takes cudaFuncSetAttribute, which holds per
+// device, so the largest size set is kept per device.
+constexpr int kMaxDevices = 64;
+
+template <auto Kernel>
+cudaError_t allow_smem(size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  static size_t limit[kMaxDevices] = {};
+  if (bytes <= limit[dev]) return cudaSuccess;
+  err = cudaFuncSetAttribute(
+      Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err == cudaSuccess) limit[dev] = bytes;
+  return err;
 }
 
 }  // namespace

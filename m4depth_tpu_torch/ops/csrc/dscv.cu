@@ -87,14 +87,43 @@
 // positions. The sweep-centre term carries the gradient into every deeper
 // level, whose parallax, doubled and upsampled, is this level's centre.
 //
-// What bounds the backward: bytes as well (c1, c2, the centre, the previous
-// parallax and dcv read once; dc1, dc2, dcentre written once), but the
-// float32 atomics into dc2 (4 x 9 per pixel and channel) are its likely
-// limit. Design: one warp per pixel, its lanes over the channels, so the
-// per-pixel sums (dc1 in a shared-memory row, the position derivative by
-// a warp shuffle reduction) need no atomics, and the 32 lanes' atomics into
-// one corner hit 32 neighbouring floats. dc2 accumulates in a float32
-// scratch that the wrapper zeroes and then casts to c2's type.
+// What bounds the backward: of the two bounds, the float32 operations
+// (~27 a hypothesis and channel) are larger than the unique bytes (c1, c2,
+// the centre, the previous parallax and dcv read once; dc1, dc2, dcentre
+// written once). In practice dc2's scatter sets the time: each pixel adds
+// to 4 corners x 9 hypotheses per channel, as float32 device atomics that
+// the L2 cache applies per 32-byte sector, and neighbouring pixels' samples
+// lie 1 px apart, so each dc2 value takes ~36 adds.
+//
+// Backward design (`dscv_backward_kernel`):
+// - Threads as the forward's, over 4-channel vectors: lanes over a cut's
+//   vectors, x cuts x slices of the hypotheses, the slices doubling while
+//   the grid stays within a wave of resident threads; 256-thread blocks of
+//   at most 85 registers, three to an SM (128-thread blocks, a larger wave
+//   or more registers read within 2%).
+// - Per thread, in registers: its c1 vector (loaded once), its dc1 sums,
+//   and its share of the position derivatives, folded at once into the
+//   pixel's dcentre sum (the clip gates and the epipolar direction are the
+//   same for every channel), so nothing is reduced per hypothesis. At the
+//   end dc1 sums over the slices by shuffles, dcentre over the pixel's
+//   threads.
+// - dc2: each corner of a sample is one 16-byte atomic a lane, and the
+//   lanes of a pixel's cut hold neighbouring vectors, so a warp's adds to
+//   one pixel are one contiguous range (8 channels a lane with scalar
+//   atomics, each lane's adds in sectors of their own, ran 5-8x slower at
+//   levels 2-4). A corner of weight zero is skipped, and a sample at the
+//   same position and fractions as the thread's previous one adds to it in
+//   registers: the border clamp sends all 9 samples of a pixel with a
+//   large sweep centre to one corner, and adds to one address serialise in
+//   the L2.
+// - Measured and dropped (NVIDIA H100 80GB HBM3, 700 W, `chip_smoke.py`
+//   phase 10): combining dc2 in a shared-memory window over a tile's
+//   samples, flushed once to device memory. With float32 shared atomics
+//   (compare-and-swap loops on this card) it ran 3-8x slower than the
+//   parent at levels 2-4; with integer fixed-point adds it still ran 6-22%
+//   slower than direct atomics at levels 1-4.
+// - The sample positions come from the same `epipolar` and
+//   `sample_position` as the forward's.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -105,7 +134,10 @@
 
 namespace {
 
-constexpr int kThreads = 256;  // the backward's block
+// the backward: threads of a block, and blocks of an SM (its register
+// budget: at most 85 a thread)
+constexpr int kBackwardThreads = 256;
+constexpr int kBackwardMinBlocks = 3;
 // the forward: threads' worth of pixels a block, threads of one pixel at
 // most, slices of the hypotheses at most, and the threads of one wave (the
 // H100's 132 SMs hold 6 of its blocks each at about 80 registers a thread)
@@ -113,15 +145,6 @@ constexpr int kForwardThreads = 128;
 constexpr int kMaxPixelThreads = 512;
 constexpr int kMaxSlices = 8;
 constexpr long long kWaveThreads = 96 * 1024;
-
-template <typename T> __device__ __forceinline__ T from_float(float v);
-template <> __device__ __forceinline__ float from_float<float>(float v) {
-  return v;
-}
-template <> __device__ __forceinline__ __nv_bfloat16
-from_float<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
 
 // Row-major rotation matrix of a small-angle vector (rot_dim 3) or a unit
 // (w, x, y, z) quaternion (rot_dim 4), as geometry/rotations.py builds it.
@@ -356,21 +379,50 @@ dscv_forward_kernel(const T* __restrict__ c1, const T* __restrict__ c2,
   store_block(cv + (long long)p0 * cuts * S, s_out, n * cuts * S);
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int off = 16; off > 0; off >>= 1)
-    v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
+// dc2's corners of one sample at `tap` with bilinear fractions (ax, ay):
+// coef[u] * w_n into corner n (tl, tr, bl, br) for VEC channels from `ch`,
+// with one 16-byte device atomic a corner where VEC is 4 (neighbouring
+// lanes on neighbouring vectors, so a warp's adds to one pixel are one
+// contiguous range). A corner of weight zero (a clipped fraction) adds
+// nothing and is skipped.
+template <int VEC>
+__device__ __forceinline__ void add_sample(float* __restrict__ dc2,
+                                           long long tap, float ax, float ay,
+                                           int w, int C, int ch,
+                                           const float (&coef)[VEC]) {
+  const float wt[4] = {(1.f - ax) * (1.f - ay), ax * (1.f - ay),
+                       (1.f - ax) * ay, ax * ay};
+  const long long at[4] = {tap, tap + 1, tap + w, tap + w + 1};
+#pragma unroll
+  for (int n = 0; n < 4; ++n) {
+    if (wt[n] == 0.f) continue;
+    float* d = dc2 + at[n] * C + ch;
+    if constexpr (VEC == 4) {
+      atomicAdd(reinterpret_cast<float4*>(d),
+                make_float4(coef[0] * wt[n], coef[1] * wt[n],
+                            coef[2] * wt[n], coef[3] * wt[n]));
+    } else {
+#pragma unroll
+      for (int u = 0; u < VEC; ++u) atomicAdd(d + u, coef[u] * wt[n]);
+    }
+  }
 }
 
-// One warp per pixel p; its lanes stride over the C channels. For each
-// hypothesis k, with g = dcv[p, cut(c), k] / cc and the forward's sample:
-//   dc1[p, c]      += g * sample_k(c2)[c]          (shared-memory row)
-//   dc2[corner, c] += g * c1[p, c] * w_corner       (float32 atomics)
-//   d/dq_k          = sum_c g * c1[p, c] * d sample_k(c2)[c] / dq
-// and the centre hypothesis adds the warped parallax's terms. The position
-// derivative reaches the centre through q_k = ... + unit * clip(centre + k).
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
+// The VJP of dscv_forward_kernel. For each hypothesis k of pixel p, with
+// g = dcv[p, cut, k] / cc and the forward's sample:
+//   dc1[p, c]      += g * sample_k(c2)[c]
+//   dc2[corner, c] += g * c1[p, c] * w_corner
+//   dcentre[p]     += gate_k * (ux * d/dax_k + uy * d/day_k)
+// where d/dax_k = sum_c g * c1[p, c] * d sample_k(c2)[c] / dax (plus the
+// warped parallax's term at the centre hypothesis).
+// Block: P pixels from p0 = blockIdx.x * P, tpp threads each (a power of
+// two), pixel-major; within a pixel, fastest first: channel lane, slice of
+// the hypotheses, cut, as in the forward. A thread owns one VEC-channel
+// vector of c1 (or several, lanes apart), keeps its dc1 sums in registers,
+// and folds its part of the position derivatives into dcentre's sum at
+// once: the gates and (ux, uy) are the same for every channel.
+template <typename T, int VEC>
+__global__ void __launch_bounds__(kBackwardThreads, kBackwardMinBlocks)
 dscv_backward_kernel(const T* __restrict__ c1, const T* __restrict__ c2,
                      const T* __restrict__ para,
                      const float* __restrict__ centre,
@@ -383,82 +435,127 @@ dscv_backward_kernel(const T* __restrict__ c1, const T* __restrict__ c2,
                      T* __restrict__ dc1, float* __restrict__ dc2,
                      float* __restrict__ dcentre, float* __restrict__ dpara,
                      int h, int w, int C, int cuts, int r, int rot_dim,
-                     long long n_pix) {
-  extern __shared__ float smem[];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const long long p = (long long)blockIdx.x * (kThreads / 32) + warp;
-  if (p >= n_pix) return;                  // the whole warp leaves together
-  float* acc = smem + warp * C;
-  for (int c = lane; c < C; c += 32) acc[c] = 0.f;
-
-  const int x = (int)(p % w);
-  const int y = (int)((p / w) % h);
-  const long long bi = p / ((long long)w * h);
-  const long long img = bi * h * w;
-  const Epipolar e = epipolar(rot, trans, focal, principal, bi, rot_dim, x,
-                              y);
-  const float ux = e.dx / e.den, uy = e.dy / e.den;
-  const int s = 2 * r + 1;
+                     int n_pix, int P, int lanes, int slices, int tpp) {
+  using V = Vec<T, VEC>;
+  __shared__ float s_part[kBackwardThreads / 32];
+  const int S = 2 * r + 1;
   const int cc = C / cuts;
-  const float inv_cc = 1.f / (float)cc;
+  const int vpc = cc / VEC;
+  const int t = threadIdx.x;
+  const int slot = t / tpp;
+  const int rem = t - slot * tpp;
+  const int lane = rem & (lanes - 1);
+  const int slice = (rem / lanes) & (slices - 1);
+  const int cut = rem / (lanes * slices);      // >= cuts on padding threads
+  const int pu = blockIdx.x * P + slot;
+  const bool pix = pu < n_pix;
+  const bool active = pix && cut < cuts;
+  const int p = min(pu, n_pix - 1);
+  const int x = p % w, y = (p / w) % h;
+  const int bi = p / (w * h);
+  const long long img = (long long)bi * h * w;
+  const Epipolar e = epipolar(rot, trans, focal, principal, bi, rot_dim, x, y);
   const float cen = centre[p];
-  const float dpo = dpara_out[p];
-  const float* g_row = dcv + p * (long long)(cuts * s);
-  const T* a_row = c1 + p * C;
+  const float ux = e.dx / e.den, uy = e.dy / e.den;
+  const float inv_cc = 1.f / (float)cc;
+  const float* g_row = dcv + (long long)p * (cuts * S) + (active ? cut : 0) * S;
+  const int kps = (S - slice + slices - 1) / slices;   // this slice's
+  const long long wC = (long long)w * C;
   float dcen = 0.f;
-
-  for (int k = 0; k < s; ++k) {
-    const Sample sm = sample_position(e, cen, k, r, x, y, w, h, img);
-    const float ax = sm.ax, ay = sm.ay;
-    const float wtl = (1.f - ax) * (1.f - ay), wtr = ax * (1.f - ay);
-    const float wbl = (1.f - ax) * ay, wbr = ax * ay;
-    const long long tap = sm.tap;
-    const T* tl = c2 + tap * C;
-    const T* tr = tl + C;
-    const T* bl = tl + (long long)w * C;
-    const T* br = bl + C;
-    float* gtl = dc2 + tap * C;
-    float* gtr = gtl + C;
-    float* gbl = gtl + (long long)w * C;
-    float* gbr = gbl + C;
-    float dax = 0.f, day = 0.f;
-    for (int c = lane; c < C; c += 32) {
-      const float g = g_row[(c / cc) * s + k] * inv_cc;
-      const float vtl = to_float(tl[c]), vtr = to_float(tr[c]);
-      const float vbl = to_float(bl[c]), vbr = to_float(br[c]);
-      const float top = vtl + (vtr - vtl) * ax;
-      const float bot = vbl + (vbr - vbl) * ax;
-      acc[c] = fmaf(g, top + (bot - top) * ay, acc[c]);
-      const float coef = g * to_float(a_row[c]);
-      atomicAdd(gtl + c, coef * wtl);
-      atomicAdd(gtr + c, coef * wtr);
-      atomicAdd(gbl + c, coef * wbl);
-      atomicAdd(gbr + c, coef * wbr);
-      dax = fmaf(coef, (vtr - vtl) + ((vbr - vbl) - (vtr - vtl)) * ay, dax);
-      day = fmaf(coef, bot - top, day);
-    }
-    dax = warp_sum(dax);
-    day = warp_sum(day);
-    if (k == r) {
-      const float vtl = to_float(para[tap]), vtr = to_float(para[tap + 1]);
-      const float vbl = to_float(para[tap + w]);
-      const float vbr = to_float(para[tap + w + 1]);
-      const float top = vtl + (vtr - vtl) * ax;
-      const float bot = vbl + (vbr - vbl) * ax;
-      dax = fmaf(dpo, (vtr - vtl) + ((vbr - vbl) - (vtr - vtl)) * ay, dax);
-      day = fmaf(dpo, bot - top, day);
-      if (dpara != nullptr && lane == 0) {
-        atomicAdd(dpara + tap, dpo * wtl);
-        atomicAdd(dpara + tap + 1, dpo * wtr);
-        atomicAdd(dpara + tap + w, dpo * wbl);
-        atomicAdd(dpara + tap + w + 1, dpo * wbr);
+  const int nj = (vpc + lanes - 1) / lanes;
+  for (int jj = 0; jj < nj; ++jj) {
+    const int j = lane + jj * lanes;
+    const bool on = active && j < vpc;
+    const int ch = on ? cut * cc + j * VEC : 0;
+    float a[VEC], acc[VEC], p_coef[VEC];
+    long long p_tap = -1;                      // the pending sample
+    float p_ax = 0.f, p_ay = 0.f;
+#pragma unroll
+    for (int u = 0; u < VEC; ++u) a[u] = acc[u] = p_coef[u] = 0.f;
+    if (on) V::load(c1 + (long long)p * C + ch, a);
+    for (int i = 0; on && i < kps; ++i) {
+      const int k = slice + i * slices;
+      const Sample sm = sample_position(e, cen, k, r, x, y, w, h, img);
+      const float gk = g_row[k] * inv_cc;
+      const T* tl = c2 + sm.tap * C + ch;
+      float f[4][VEC];
+      V::load(tl, f[0]);
+      V::load(tl + C, f[1]);
+      V::load(tl + wC, f[2]);
+      V::load(tl + wC + C, f[3]);
+      const float ax = sm.ax, ay = sm.ay;
+      float dax = 0.f, day = 0.f;
+      float coef[VEC];
+#pragma unroll
+      for (int u = 0; u < VEC; ++u) {
+        const float top = f[0][u] + (f[1][u] - f[0][u]) * ax;
+        const float bot = f[2][u] + (f[3][u] - f[2][u]) * ax;
+        acc[u] = fmaf(gk, top + (bot - top) * ay, acc[u]);
+        coef[u] = gk * a[u];
+        dax = fmaf(coef[u],
+                   (f[1][u] - f[0][u]) +
+                       ((f[3][u] - f[2][u]) - (f[1][u] - f[0][u])) * ay,
+                   dax);
+        day = fmaf(coef[u], bot - top, day);
+      }
+      const long long tap = sm.tap;
+      if (k == r && cut == 0 && j == 0) {
+        // the centre hypothesis also warped the previous parallax: one
+        // thread of the pixel adds its terms
+        const float dpo = dpara_out[p];
+        const float vtl = to_float(para[tap]), vtr = to_float(para[tap + 1]);
+        const float vbl = to_float(para[tap + w]);
+        const float vbr = to_float(para[tap + w + 1]);
+        const float top = vtl + (vtr - vtl) * ax;
+        const float bot = vbl + (vbr - vbl) * ax;
+        dax = fmaf(dpo, (vtr - vtl) + ((vbr - vbl) - (vtr - vtl)) * ay, dax);
+        day = fmaf(dpo, bot - top, day);
+        if (dpara != nullptr) {
+          atomicAdd(dpara + tap, dpo * (1.f - ax) * (1.f - ay));
+          atomicAdd(dpara + tap + 1, dpo * ax * (1.f - ay));
+          atomicAdd(dpara + tap + w, dpo * (1.f - ax) * ay);
+          atomicAdd(dpara + tap + w + 1, dpo * ax * ay);
+        }
+      }
+      if (sm.in_disp)
+        dcen += (sm.in_x ? dax : 0.f) * ux + (sm.in_y ? day : 0.f) * uy;
+      // dc2: a sample at the same position and fractions as the one before
+      // (all of a far pixel's, clamped to the border) adds to it in
+      // registers, so such pixels do not all add to one address
+      if (tap == p_tap && ax == p_ax && ay == p_ay) {
+#pragma unroll
+        for (int u = 0; u < VEC; ++u) p_coef[u] += coef[u];
+      } else {
+        if (p_tap >= 0)
+          add_sample<VEC>(dc2, p_tap, p_ax, p_ay, w, C, ch, p_coef);
+        p_tap = tap;
+        p_ax = ax;
+        p_ay = ay;
+#pragma unroll
+        for (int u = 0; u < VEC; ++u) p_coef[u] = coef[u];
       }
     }
-    if (sm.in_disp)
-      dcen += (sm.in_x ? dax : 0.f) * ux + (sm.in_y ? day : 0.f) * uy;
+    if (p_tap >= 0) add_sample<VEC>(dc2, p_tap, p_ax, p_ay, w, C, ch, p_coef);
+    // dc1: the slices of one lane and cut sit in one warp
+    for (int off = lanes; off < lanes * slices; off <<= 1) {
+#pragma unroll
+      for (int u = 0; u < VEC; ++u)
+        acc[u] += __shfl_xor_sync(0xffffffffu, acc[u], off);
+    }
+    if (on && slice == 0) V::store(dc1 + (long long)p * C + ch, acc);
   }
-  for (int c = lane; c < C; c += 32) dc1[p * C + c] = from_float<T>(acc[c]);
-  if (lane == 0) dcentre[p] = dcen;
+
+  // dcentre: the sum over the pixel's threads, across warps where it has
+  // more than 32
+  for (int off = 1; off < min(tpp, 32); off <<= 1)
+    dcen += __shfl_xor_sync(0xffffffffu, dcen, off);
+  if (tpp > 32) {
+    if ((t & 31) == 0) s_part[t >> 5] = dcen;
+    __syncthreads();
+    if (rem == 0)
+      for (int i = 1; i < tpp / 32; ++i) dcen += s_part[(t >> 5) + i];
+  }
+  if (rem == 0 && pix) dcentre[p] = dcen;
 }
 
 int pow2_at_least(int n) {
@@ -528,6 +625,51 @@ cudaError_t launch(const void* c1, const void* c2, const void* para,
                               rot_dim, stream);
 }
 
+// The backward's split: as the forward's, lanes cover a cut's vectors (so a
+// thread owns one, up to 32 lanes), then the slices double while the grid
+// stays within one wave of resident threads and a lane's slices stay in
+// one warp; a block holds kBackwardThreads threads' worth of pixels.
+template <typename T, int VEC>
+cudaError_t launch_backward_v(const void* c1, const void* c2,
+                              const void* para, const void* centre,
+                              const void* rot, const void* trans,
+                              const void* focal, const void* principal,
+                              const void* dcv, const void* dpara_out,
+                              void* dc1, void* dc2, void* dcentre,
+                              void* dpara, int b, int h, int w, int C,
+                              int cuts, int r, int rot_dim,
+                              cudaStream_t stream) {
+  const int S = 2 * r + 1;
+  const long long n_pix = (long long)b * h * w;
+  const int lanes = std::min(32, pow2_at_least(C / cuts / VEC));
+  const int cuts_p = pow2_at_least(cuts);
+  int slices = 1;
+  while (slices < S && lanes * slices * 2 <= 32 &&
+         lanes * cuts_p * slices * 2 <= kBackwardThreads &&
+         n_pix * lanes * cuts_p * slices * 2 <= kWaveThreads)
+    slices <<= 1;
+  const int tpp = lanes * cuts_p * slices;
+  if (tpp > kBackwardThreads) return cudaErrorInvalidValue;  // too many cuts
+  const int P = kBackwardThreads / tpp;
+  const long long blocks = (n_pix + P - 1) / P;
+  if (n_pix > 0x7fffffffLL) return cudaErrorInvalidValue;
+  dscv_backward_kernel<T, VEC>
+      <<<(unsigned)blocks, kBackwardThreads, 0, stream>>>(
+          static_cast<const T*>(c1), static_cast<const T*>(c2),
+          static_cast<const T*>(para), static_cast<const float*>(centre),
+          static_cast<const float*>(rot), static_cast<const float*>(trans),
+          static_cast<const float*>(focal),
+          static_cast<const float*>(principal),
+          static_cast<const float*>(dcv),
+          static_cast<const float*>(dpara_out), static_cast<T*>(dc1),
+          static_cast<float*>(dc2), static_cast<float*>(dcentre),
+          static_cast<float*>(dpara), h, w, C, cuts, r, rot_dim, (int)n_pix,
+          P, lanes, slices, tpp);
+  return cudaGetLastError();
+}
+
+// 4-channel vectors (16-byte dc2 atomics; 16-byte loads of float32, 8-byte
+// ones of bfloat16) where every vector of a cut is aligned, else scalars.
 template <typename T>
 cudaError_t launch_backward(const void* c1, const void* c2, const void* para,
                             const void* centre, const void* rot,
@@ -537,21 +679,15 @@ cudaError_t launch_backward(const void* c1, const void* c2, const void* para,
                             void* dcentre, void* dpara, int b, int h, int w,
                             int C, int cuts, int r, int rot_dim,
                             cudaStream_t stream) {
-  const long long n_pix = (long long)b * h * w;
-  const long long blocks = (n_pix + kThreads / 32 - 1) / (kThreads / 32);
-  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  const size_t smem = (size_t)(kThreads / 32) * C * sizeof(float);
-  if (smem > 48 * 1024) return cudaErrorInvalidValue;
-  dscv_backward_kernel<T><<<(unsigned)blocks, kThreads, smem, stream>>>(
-      static_cast<const T*>(c1), static_cast<const T*>(c2),
-      static_cast<const T*>(para), static_cast<const float*>(centre),
-      static_cast<const float*>(rot), static_cast<const float*>(trans),
-      static_cast<const float*>(focal),
-      static_cast<const float*>(principal), static_cast<const float*>(dcv),
-      static_cast<const float*>(dpara_out), static_cast<T*>(dc1),
-      static_cast<float*>(dc2), static_cast<float*>(dcentre),
-      static_cast<float*>(dpara), h, w, C, cuts, r, rot_dim, n_pix);
-  return cudaGetLastError();
+  if ((C / cuts) % 4 == 0 && aligned16(c1) && aligned16(c2) &&
+      aligned16(dc1) && aligned16(dc2))
+    return launch_backward_v<T, 4>(
+        c1, c2, para, centre, rot, trans, focal, principal, dcv, dpara_out,
+        dc1, dc2, dcentre, dpara, b, h, w, C, cuts, r, rot_dim, stream);
+  return launch_backward_v<T, 1>(c1, c2, para, centre, rot, trans, focal,
+                                 principal, dcv, dpara_out, dc1, dc2,
+                                 dcentre, dpara, b, h, w, C, cuts, r,
+                                 rot_dim, stream);
 }
 
 }  // namespace

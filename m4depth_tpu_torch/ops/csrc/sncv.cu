@@ -48,9 +48,32 @@
 // Backward (`sncv_backward`): the counterpart of the JAX custom VJP
 // `_sncv_bwd` (m4depth_tpu/ops/sncv_pallas.py:134-161), which is plain XLA
 // there; the port needs a kernel since its forward is one. Bound by bytes
-// too: it reads g and the forward's output (49*cuts floats a pixel each)
-// and c1, c2, and writes dc1, dc2; 4*C flops per offset and pixel. Its
-// design is described at `sncv_backward_kernel`.
+// too: it reads g and the forward's output (49*cuts floats a pixel each,
+// 80% of the bytes at every level) and c1 (and c2), and writes dc1 (and
+// dc2); 4*C flops per offset and pixel. An earlier design read g and out
+// for one cut at a time (addresses `cuts` floats apart), staged a tile in
+// float32 with a division per element, and had too few blocks at the deep
+// levels.
+//
+// Backward design (`sncv_backward_kernel`):
+// - Both gradients as gathers over the same neighbours q + d: dc1 takes
+//   g'[q, d] * c2[q + d], dc2 takes g'[q + d, -d] * c1[q + d]; with c1 is
+//   c2 the kernel adds the two coefficients and writes one gradient,
+//   rounded once, so autograd adds nothing after it.
+// - A block stages g' = g * (out > 0 ? 1 : slope) / cc for its tile and the
+//   r-pixel halo, every cut, from whole contiguous pixel rows of g and out
+//   (16-byte loads where a pixel's row is a whole number of vectors), once.
+// - A thread owns one 16-byte channel vector of one pixel (and, at the
+//   small levels, one group of the window's rows), fixed once from its
+//   index; it reads both coefficients from shared memory and the
+//   neighbours' vectors from device memory through L1, and keeps its sums
+//   in registers. Row groups add up in shared memory, in order.
+// - Tiles start at 16x16 and halve while the block has more than 512
+//   threads or its halo more than 128 KB of g', then while the grid has
+//   less than a wave of blocks; a grid of few threads splits the window's
+//   7 rows across threads. Measured (NVIDIA H100 80GB HBM3, 700 W): a
+//   56 KB tile budget read 25% slower in all than 100 KB, and 128 KB 2%
+//   faster (its level 2 8%).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -61,21 +84,20 @@
 
 namespace {
 
-// the backward: threads of a block, the shared memory above which its tile
-// halves, and the most a block may have
-constexpr int kThreads = 256;
-constexpr size_t kPreferredSmem = 100 * 1024;
+// the backward: threads of a block at most, and at most before its rows are
+// split; the shared memory above which its tile halves, and the most a
+// block may have; the threads of a grid under which the window's rows are
+// split across threads
+constexpr int kBackwardThreads = 768;
+constexpr int kTileThreads = 512;
+constexpr size_t kPreferredSmem = 128 * 1024;
 constexpr size_t kMaxSmem = 227 * 1024;
+constexpr long long kFewThreads = 32 * 1024;
 // the forward: threads of a block at most, pixels of a segment at most, and
 // the blocks that make one wave on the H100 (132 SMs)
 constexpr int kForwardThreads = 256;
 constexpr int kMaxSegment = 32;
 constexpr long long kWave = 132;
-
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
-}
 
 // Grid: x over (image row, segment of `seg` pixels), y over groups of `dys`
 // rows of the window. Block: cuts x seg/2 x dys threads, the cut fastest.
@@ -162,84 +184,155 @@ sncv_forward_kernel(const T* __restrict__ c1, const T* __restrict__ c2,
   }
 }
 
-// The VJP of sncv_forward: with g' = g * (out > 0 ? 1 : slope) / cc,
-//     dc1[p, c] = sum_d g'[p, d, cut(c)] * c2[p + d, c]
-//     dc2[q, c] = sum_d g'[q - d, d, cut(c)] * c1[q - d, c]
-// both gathers (zero outside the image), one thread per output element. A
-// block owns a TILE x TILE pixel tile of one cut of one image and stages,
-// for the tile with its r-pixel halo, g' (noff values a pixel), c1 and c2
-// (cc values a pixel, stride cc+1 against bank conflicts) in shared memory
-// as float32. So each input value comes from device memory once per block
-// and no output needs an atomic.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
+// The VJP of sncv_forward. With g'[p, d, cut] = g * (out > 0 ? 1 : slope)
+// / cc and the mirrored offset -d,
+//     dc1[q, c] = sum_d g'[q, d, cut(c)]      * c2[q + d, c]
+//     dc2[q, c] = sum_d g'[q + d, -d, cut(c)] * c1[q + d, c]
+// both gathers over the same neighbours q + d (zero outside the image), so
+// no output needs an atomic. With c1 is c2 (SAME) one gradient, their sum:
+//     dc[q, c]  = sum_d (g'[q, d, cut] + g'[q + d, -d, cut]) * c1[q + d, c]
+// Grid: x over (image, tile row, tile column) of tw x th pixel tiles.
+// Block: threads over (channel vector, pixel of the tile, group of window
+// rows), the vector fastest. Shared memory: g' of the tile and its r-pixel
+// halo (clipped to the image), every cut, `stride` floats a pixel; after
+// the gathers, the row groups' partial sums.
+template <typename T, int VEC, int R, bool SAME>
+__global__ void __launch_bounds__(kBackwardThreads)
 sncv_backward_kernel(const float* __restrict__ g,
                      const float* __restrict__ out, const T* __restrict__ c1,
                      const T* __restrict__ c2, T* __restrict__ dc1,
                      T* __restrict__ dc2, int h, int w, int C, int cuts,
-                     int r, int tile, float slope) {
-  extern __shared__ float smem[];
-  const int side = 2 * r + 1;
-  const int noff = side * side;
-  const int halo = tile + 2 * r;
+                     int tw, int th, int ntx, int nty, int nr, int stage4,
+                     float slope) {
+  constexpr int S = 2 * R + 1;
+  extern __shared__ __align__(16) float sg[];
+  const int row = S * S * cuts;                // g' floats a pixel
+  const int stride = row | 1;                  // odd: pixels in other banks
+  const int vecs = C / VEC;
   const int cc = C / cuts;
-  const int stride = cc + 1;
-  float* sg = smem;                          // [halo * halo][noff]
-  float* s1 = sg + halo * halo * noff;       // [halo * halo][stride]
-  float* s2 = s1 + halo * halo * stride;     // [halo * halo][stride]
-  const int y0 = blockIdx.y * tile;
-  const int x0 = blockIdx.x * tile;
-  const int bi = blockIdx.z / cuts;
-  const int cut = blockIdx.z - bi * cuts;
+  const int t = threadIdx.x;
+  int bx = blockIdx.x;
+  const int tx = bx % ntx;
+  bx /= ntx;
+  const int ty = bx % nty;
+  const int bi = bx / nty;
   const long long img = (long long)bi * h * w;
-  const float inv_cc = 1.f / (float)cc;
+  const int x0 = tx * tw, y0 = ty * th;
+  const int hx0 = max(x0 - R, 0), hx1 = min(x0 + tw + R, w);
+  const int hy0 = max(y0 - R, 0), hy1 = min(y0 + th + R, h);
+  const int hw = hx1 - hx0;
 
-  for (int i = threadIdx.x; i < halo * halo * noff; i += blockDim.x) {
-    const int q = i / noff, o = i - q * noff;
-    const int gy = y0 + q / halo - r, gx = x0 + q % halo - r;
-    float v = 0.f;
-    if (gy >= 0 && gy < h && gx >= 0 && gx < w) {
-      const long long at =
-          (img + (long long)gy * w + gx) * noff * cuts + o * cuts + cut;
-      const float gv = g[at];
-      v = (out[at] > 0.f ? gv : gv * slope) * inv_cc;
+  // 1. g' of the halo: each of its rows is one contiguous range of g and of
+  // out, read with neighbouring threads on neighbouring floats (16-byte
+  // vectors where a pixel's row is a whole number of them)
+  const float inv_cc = 1.f / (float)cc;
+  const int n_row = hw * row;
+  for (int yy = hy0; yy < hy1; ++yy) {
+    const long long at = (img + (long long)yy * w + hx0) * row;
+    float* dst = sg + (yy - hy0) * hw * stride;
+    if (stage4) {
+      const float4* g4 = reinterpret_cast<const float4*>(g + at);
+      const float4* o4 = reinterpret_cast<const float4*>(out + at);
+      for (int i = t; i < (n_row >> 2); i += blockDim.x) {
+        const float4 gv = __ldg(g4 + i), ov = __ldg(o4 + i);
+        const int px = (4 * i) / row, o = 4 * i - px * row;
+        float* d = dst + px * stride + o;
+        d[0] = (ov.x > 0.f ? gv.x : gv.x * slope) * inv_cc;
+        d[1] = (ov.y > 0.f ? gv.y : gv.y * slope) * inv_cc;
+        d[2] = (ov.z > 0.f ? gv.z : gv.z * slope) * inv_cc;
+        d[3] = (ov.w > 0.f ? gv.w : gv.w * slope) * inv_cc;
+      }
+    } else {
+      for (int i = t; i < n_row; i += blockDim.x) {
+        const float gv = __ldg(g + at + i), ov = __ldg(out + at + i);
+        const int px = i / row;
+        dst[px * stride + i - px * row] =
+            (ov > 0.f ? gv : gv * slope) * inv_cc;
+      }
     }
-    sg[i] = v;
-  }
-  for (int i = threadIdx.x; i < halo * halo * cc; i += blockDim.x) {
-    const int q = i / cc, c = i - q * cc;
-    const int gy = y0 + q / halo - r, gx = x0 + q % halo - r;
-    float v1 = 0.f, v2 = 0.f;
-    if (gy >= 0 && gy < h && gx >= 0 && gx < w) {
-      const long long at = (img + (long long)gy * w + gx) * C + cut * cc + c;
-      v1 = to_float(c1[at]);
-      v2 = to_float(c2[at]);
-    }
-    s1[q * stride + c] = v1;
-    s2[q * stride + c] = v2;
   }
   __syncthreads();
 
-  for (int i = threadIdx.x; i < tile * tile * cc; i += blockDim.x) {
-    const int p = i / cc, c = i - p * cc;
-    const int py = p / tile, px = p - py * tile;
-    const int gy = y0 + py, gx = x0 + px;
-    if (gy >= h || gx >= w) continue;
-    const float* gp = sg + ((py + r) * halo + px + r) * noff;
-    float a1 = 0.f, a2 = 0.f;
-    for (int dy = 0; dy < side; ++dy) {
-      for (int dx = 0; dx < side; ++dx) {
-        const int o = dy * side + dx;
-        // p + d in halo coordinates, and q - d for q = p
-        const int qp = (py + dy) * halo + px + dx;
-        const int qm = (py + 2 * r - dy) * halo + px + 2 * r - dx;
-        a1 = fmaf(gp[o], s2[qp * stride + c], a1);
-        a2 = fmaf(sg[qm * noff + o], s1[qm * stride + c], a2);
+  // 2. the gathers: this thread's channel vector j of pixel (x, y), over
+  // the window rows dy = rg, rg + nr, ...; both coefficients come from
+  // shared memory, the neighbours' vectors from device memory through L1
+  const int P = tw * th;
+  const int j = t % vecs;
+  const int pl = (t / vecs) % P;
+  const int rg = t / (vecs * P);
+  const int x = x0 + pl % tw, y = y0 + pl / tw;
+  const bool active = x < w && y < h && rg < nr;
+  const int cut = (j * VEC) / cc;
+  float acc1[VEC], acc2[VEC];
+#pragma unroll
+  for (int u = 0; u < VEC; ++u) acc1[u] = acc2[u] = 0.f;
+  if (active) {
+    const float* sa =
+        sg + ((y - hy0) * hw + (x - hx0)) * stride + cut;  // g'[q, d]
+    for (int dy = rg; dy < S; dy += nr) {
+      const int yy = y + dy - R;
+      if (yy < 0 || yy >= h) continue;
+      const long long nb = (img + (long long)yy * w) * C + j * VEC;
+      // g'[q + d, -d] of the neighbour in column xx: offset
+      // (2R - dy) * S + 2R - dx
+      const float* sb = sg + (yy - hy0) * hw * stride +
+                        ((2 * R - dy) * S + 2 * R) * cuts + cut;
+#pragma unroll
+      for (int dx = 0; dx < S; ++dx) {
+        const int xx = x + dx - R;
+        if (xx < 0 || xx >= w) continue;
+        const float ga = sa[(dy * S + dx) * cuts];
+        const float gb = sb[(xx - hx0) * stride - dx * cuts];
+        float v1[VEC];
+        Vec<T, VEC>::load(c1 + nb + (long long)xx * C, v1);
+        if (SAME) {
+          const float gs = ga + gb;
+#pragma unroll
+          for (int u = 0; u < VEC; ++u) acc1[u] = fmaf(gs, v1[u], acc1[u]);
+        } else {
+          float v2[VEC];
+          Vec<T, VEC>::load(c2 + nb + (long long)xx * C, v2);
+#pragma unroll
+          for (int u = 0; u < VEC; ++u) {
+            acc1[u] = fmaf(ga, v2[u], acc1[u]);
+            acc2[u] = fmaf(gb, v1[u], acc2[u]);
+          }
+        }
       }
     }
-    const long long at = (img + (long long)gy * w + gx) * C + cut * cc + c;
-    store(dc1 + at, a1);
-    store(dc2 + at, a2);
+  }
+
+  // 3. the row groups' partial sums, added in order by group 0, then the
+  // gradients rounded once to T
+  if (nr > 1) {
+    constexpr int NA = SAME ? 1 : 2;
+    __syncthreads();                           // g' is read: reuse sg
+    const int slot = (t % (vecs * P)) * NA * VEC;
+    const int span = vecs * P * NA * VEC;
+    if (rg > 0 && rg < nr) {
+      float* d = sg + (rg - 1) * span + slot;
+#pragma unroll
+      for (int u = 0; u < VEC; ++u) {
+        d[u] = acc1[u];
+        if (!SAME) d[VEC + u] = acc2[u];
+      }
+    }
+    __syncthreads();
+    if (rg == 0) {
+      for (int i = 1; i < nr; ++i) {
+        const float* d = sg + (i - 1) * span + slot;
+#pragma unroll
+        for (int u = 0; u < VEC; ++u) {
+          acc1[u] += d[u];
+          if (!SAME) acc2[u] += d[VEC + u];
+        }
+      }
+    }
+  }
+  if (active && rg == 0) {
+    const long long at = (img + (long long)y * w + x) * C + j * VEC;
+    Vec<T, VEC>::store(dc1 + at, acc1);
+    if (!SAME) Vec<T, VEC>::store(dc2 + at, acc2);
   }
 }
 
@@ -331,37 +424,127 @@ cudaError_t launch(const void* c1, const void* c2, void* out, int b, int h,
                                 stream);
 }
 
-size_t backward_smem_bytes(int tile, int r, int C, int cuts) {
-  const size_t halo = tile + 2 * r;
-  const size_t noff = (size_t)(2 * r + 1) * (2 * r + 1);
-  return halo * halo * (noff + 2 * (C / cuts + 1)) * sizeof(float);
+// The backward's grid: tiles of tw x th pixels, ntx x nty of them to an
+// image, and nr groups of the window's rows to a block.
+struct BackwardGrid {
+  int tw, th, ntx, nty, nr;
+  size_t smem;
+};
+
+// Starts from 16 x 16 tiles, halving the longer side until the block has at
+// most kTileThreads threads and its halo's g' fits kPreferredSmem, then
+// while the grid has less than a wave of blocks (down to 2 x 2 tiles).
+// Where the threads are still few, the window's rows go to as many groups
+// of threads (a level of a few hundred pixels). False if even a one-pixel
+// tile does not fit.
+bool backward_grid(long long b, int h, int w, int C, int cuts, int vec,
+                   int R, bool same, BackwardGrid* g) {
+  const int S = 2 * R + 1;
+  const int vecs = C / vec;
+  const size_t stride = (size_t)(S * S * cuts) | 1;
+  int tw = std::min(16, w), th = std::min(16, h);
+  auto halo = [&](int tw_, int th_) {
+    return (size_t)std::min(th_ + 2 * R, h) * std::min(tw_ + 2 * R, w) *
+           stride * sizeof(float);
+  };
+  auto blocks = [&](int tw_, int th_) {
+    return b * ((w + tw_ - 1) / tw_) * ((h + th_ - 1) / th_);
+  };
+  auto halve = [&]() {
+    if (tw >= th) tw = (tw + 1) / 2; else th = (th + 1) / 2;
+  };
+  while ((tw * th * vecs > kTileThreads || halo(tw, th) > kPreferredSmem) &&
+         tw * th > 1)
+    halve();
+  while (blocks(tw, th) < kWave && tw * th > 4) halve();
+  if (tw * th * vecs > kBackwardThreads || halo(tw, th) > kMaxSmem)
+    return false;
+  int nr = 1;
+  if (blocks(tw, th) * tw * th * vecs < kFewThreads &&
+      tw * th * vecs * S <= kBackwardThreads)
+    nr = S;
+  const size_t partial =
+      (size_t)(nr - 1) * tw * th * C * (same ? 1 : 2) * sizeof(float);
+  *g = {tw, th, (w + tw - 1) / tw, (h + th - 1) / th, nr,
+        std::max(halo(tw, th), partial)};
+  return g->smem <= kMaxSmem;
+}
+
+template <typename T, int VEC, int R, bool SAME>
+cudaError_t launch_backward(const void* g, const void* out, const void* c1,
+                            const void* c2, void* dc1, void* dc2, int b,
+                            int h, int w, int C, int cuts, float slope,
+                            cudaStream_t stream) {
+  BackwardGrid gr;
+  if (!backward_grid(b, h, w, C, cuts, VEC, R, SAME, &gr))
+    return cudaErrorInvalidValue;
+  const long long blocks = (long long)b * gr.ntx * gr.nty;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const cudaError_t err =
+      allow_smem<sncv_backward_kernel<T, VEC, R, SAME>>(gr.smem);
+  if (err != cudaSuccess) return err;
+  const int threads = gr.tw * gr.th * (C / VEC) * gr.nr;
+  const int row = (2 * R + 1) * (2 * R + 1) * cuts;
+  const int stage4 = row % 4 == 0 && aligned16(g) && aligned16(out);
+  sncv_backward_kernel<T, VEC, R, SAME>
+      <<<(unsigned)blocks, threads, gr.smem, stream>>>(
+      static_cast<const float*>(g), static_cast<const float*>(out),
+      static_cast<const T*>(c1), static_cast<const T*>(c2),
+      static_cast<T*>(dc1), static_cast<T*>(dc2), h, w, C, cuts, gr.tw,
+      gr.th, gr.ntx, gr.nty, gr.nr, stage4, slope);
+  return cudaGetLastError();
+}
+
+template <typename T, int VEC, int R>
+cudaError_t launch_backward_same(const void* g, const void* out,
+                                 const void* c1, const void* c2, void* dc1,
+                                 void* dc2, int b, int h, int w, int C,
+                                 int cuts, int same, float slope,
+                                 cudaStream_t stream) {
+  if (same)
+    return launch_backward<T, VEC, R, true>(g, out, c1, c1, dc1, dc1, b, h,
+                                            w, C, cuts, slope, stream);
+  return launch_backward<T, VEC, R, false>(g, out, c1, c2, dc1, dc2, b, h,
+                                           w, C, cuts, slope, stream);
+}
+
+// The radius as a template argument, as for the forward; 16-byte loads and
+// stores where every vector of a cut is aligned, else scalar ones.
+template <typename T, int VEC>
+cudaError_t launch_backward_r(const void* g, const void* out, const void* c1,
+                              const void* c2, void* dc1, void* dc2, int b,
+                              int h, int w, int C, int cuts, int r, int same,
+                              float slope, cudaStream_t stream) {
+  switch (r) {
+    case 1:
+      return launch_backward_same<T, VEC, 1>(g, out, c1, c2, dc1, dc2, b, h,
+                                             w, C, cuts, same, slope, stream);
+    case 2:
+      return launch_backward_same<T, VEC, 2>(g, out, c1, c2, dc1, dc2, b, h,
+                                             w, C, cuts, same, slope, stream);
+    case 3:
+      return launch_backward_same<T, VEC, 3>(g, out, c1, c2, dc1, dc2, b, h,
+                                             w, C, cuts, same, slope, stream);
+    case 4:
+      return launch_backward_same<T, VEC, 4>(g, out, c1, c2, dc1, dc2, b, h,
+                                             w, C, cuts, same, slope, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 template <typename T>
-cudaError_t launch_backward(const void* g, const void* out, const void* c1,
-                            const void* c2, void* dc1, void* dc2, int b,
-                            int h, int w, int C, int cuts, int r, float slope,
-                            cudaStream_t stream) {
-  const int tile =
-      backward_smem_bytes(8, r, C, cuts) <= kPreferredSmem ? 8 : 4;
-  const size_t smem = backward_smem_bytes(tile, r, C, cuts);
-  if (smem > kMaxSmem || (long long)b * cuts > 65535)
-    return cudaErrorInvalidValue;
-  static size_t smem_limit = 0;
-  if (smem > smem_limit) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        sncv_backward_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return err;
-    smem_limit = smem;
-  }
-  const dim3 grid((w + tile - 1) / tile, (h + tile - 1) / tile, b * cuts);
-  sncv_backward_kernel<T><<<grid, kThreads, smem, stream>>>(
-      static_cast<const float*>(g), static_cast<const float*>(out),
-      static_cast<const T*>(c1), static_cast<const T*>(c2),
-      static_cast<T*>(dc1), static_cast<T*>(dc2), h, w, C, cuts, r, tile,
-      slope);
-  return cudaGetLastError();
+cudaError_t launch_bwd(const void* g, const void* out, const void* c1,
+                       const void* c2, void* dc1, void* dc2, int b, int h,
+                       int w, int C, int cuts, int r, int same, float slope,
+                       cudaStream_t stream) {
+  const bool vec = (C / cuts) % kVec<T> == 0 && aligned16(c1) &&
+                   aligned16(c2) && aligned16(dc1) && aligned16(dc2);
+  if (vec)
+    return launch_backward_r<T, kVec<T>>(g, out, c1, c2, dc1, dc2, b, h, w,
+                                         C, cuts, r, same, slope, stream);
+  return launch_backward_r<T, 1>(g, out, c1, c2, dc1, dc2, b, h, w, C, cuts,
+                                 r, same, slope, stream);
 }
 
 }  // namespace
@@ -385,21 +568,24 @@ extern "C" int sncv_forward(const void* c1, const void* c2, void* out, int b,
 
 // g, out: [b, h, w, (2r+1)^2 * cuts] float32, the gradient of sncv_forward's
 // output and that output; c1, c2: its inputs; dc1, dc2: [b, h, w, C] in
-// the inputs' type (float32 when is_bf16 = 0, bfloat16 when 1). All
-// contiguous, on the device of `stream`. Returns the CUDA error code of
+// the inputs' type (float32 when is_bf16 = 0, bfloat16 when 1); 1 <= r <= 4.
+// With same = 1 (c1 and c2 are one tensor) it writes one gradient, their
+// sum, to dc1, and reads neither c2 nor dc2. All contiguous, on the device
+// of `stream`, which is the current device. Returns the CUDA error code of
 // the launch (0 on success).
 extern "C" int sncv_backward(const void* g, const void* out, const void* c1,
                              const void* c2, void* dc1, void* dc2, int b,
-                             int h, int w, int C, int cuts, int r,
+                             int h, int w, int C, int cuts, int r, int same,
                              float slope, int is_bf16, void* stream) {
   if (b <= 0 || h <= 0 || w <= 0 || cuts <= 0 || C % cuts != 0 || r < 0)
     return cudaErrorInvalidValue;
+  if (same) c2 = c1, dc2 = dc1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
-      is_bf16 ? launch_backward<__nv_bfloat16>(g, out, c1, c2, dc1, dc2, b,
-                                               h, w, C, cuts, r, slope, s)
-              : launch_backward<float>(g, out, c1, c2, dc1, dc2, b, h, w, C,
-                                       cuts, r, slope, s);
+      is_bf16 ? launch_bwd<__nv_bfloat16>(g, out, c1, c2, dc1, dc2, b, h, w,
+                                          C, cuts, r, same, slope, s)
+              : launch_bwd<float>(g, out, c1, c2, dc1, dc2, b, h, w, C, cuts,
+                                  r, same, slope, s);
   return (int)err;
 }
 

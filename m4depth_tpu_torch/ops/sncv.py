@@ -18,7 +18,7 @@ float32, as the Pallas kernel does.
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -31,7 +31,7 @@ SNCV_KERNEL = CudaKernel(
     + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 SNCV_BACKWARD_KERNEL = CudaKernel(
     "sncv.cu", "sncv_backward",
-    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
+    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
     + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
@@ -109,16 +109,20 @@ def _sncv_forward(a: torch.Tensor, bb: torch.Tensor, search_range: int,
 
 def _sncv_backward(grad: torch.Tensor, a: torch.Tensor, bb: torch.Tensor,
                    out: torch.Tensor, search_range: int, num_cuts: int,
-                   leaky_slope: float) -> Tuple[torch.Tensor, torch.Tensor]:
+                   leaky_slope: float
+                   ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Launch ``sncv_backward``: (dc1, dc2) in the inputs' dtype, from the
-    forward's inputs ``a``, ``bb`` and output ``out``."""
+    forward's inputs ``a``, ``bb`` and output ``out``. When ``a is bb`` the
+    kernel writes one gradient, their sum: (dc, None)."""
     b, h, w, C = a.shape
+    same = a is bb
     g = grad.float().contiguous()
-    dc1, dc2 = torch.empty_like(a), torch.empty_like(bb)
+    dc1 = torch.empty_like(a)
+    dc2 = None if same else torch.empty_like(bb)
     SNCV_BACKWARD_KERNEL.launch(
         g.data_ptr(), out.data_ptr(), a.data_ptr(), bb.data_ptr(),
-        dc1.data_ptr(), dc2.data_ptr(), b, h, w, C, num_cuts, search_range,
-        float(leaky_slope), _is_bf16(a),
+        dc1.data_ptr(), None if same else dc2.data_ptr(), b, h, w, C,
+        num_cuts, search_range, int(same), float(leaky_slope), _is_bf16(a),
         _stream(a))
     return dc1, dc2
 
@@ -126,20 +130,22 @@ def _sncv_backward(grad: torch.Tensor, a: torch.Tensor, bb: torch.Tensor,
 class SNCVFunction(torch.autograd.Function):
     """The SNCV kernel with its backward kernel, on inputs already rounded
     to the cost-volume dtype (the casts stay outside, so autograd casts the
-    gradients back). When ``c2 is c1`` autograd adds the two gradients."""
+    gradients back). When ``a is bb`` the backward kernel writes the sum of
+    both gradients, and the Function returns it as ``a``'s alone."""
 
     @staticmethod
     def forward(ctx, a, bb, search_range: int, num_cuts: int,
                 leaky_slope: float):
         out = _sncv_forward(a, bb, search_range, num_cuts, leaky_slope)
-        ctx.save_for_backward(a, bb, out)
+        ctx.save_for_backward(*((a, out) if a is bb else (a, bb, out)))
         ctx.args = (search_range, num_cuts, float(leaky_slope))
         return out
 
     @staticmethod
     def backward(ctx, grad):
-        a, bb, out = ctx.saved_tensors
-        dc1, dc2 = _sncv_backward(grad, a, bb, out, *ctx.args)
+        a, *bb, out = ctx.saved_tensors
+        dc1, dc2 = _sncv_backward(grad, a, bb[0] if bb else a, out,
+                                  *ctx.args)
         return dc1, dc2, None, None, None
 
 
@@ -168,6 +174,7 @@ def spatial_cost_volume_fused(
                          f"{num_cuts} cuts")
     if cv_dtype not in KERNEL_DTYPES:
         raise TypeError(f"sncv: cv_dtype {cv_dtype} not in {KERNEL_DTYPES}")
-    a, bb = c1.to(cv_dtype), c2.to(cv_dtype)
+    a = c1.to(cv_dtype)
+    bb = a if c2 is c1 else c2.to(cv_dtype)
     check_kernel_inputs("sncv", (a, bb), (cv_dtype,), c1.device)
     return SNCVFunction.apply(a, bb, search_range, num_cuts, leaky_slope)

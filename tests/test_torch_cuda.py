@@ -30,6 +30,7 @@ from m4depth_tpu_torch.ops import (
     spatial_cost_volume,
     spatial_cost_volume_fused,
 )
+from m4depth_tpu_torch.ops.sncv import _sncv_backward
 from m4depth_tpu_torch.testing import (
     DSCV_CV_TOL,
     DSCV_PARA_TOL,
@@ -206,10 +207,20 @@ def test_model_on_card_without_cudnn_matches_cudnn(cuda):
         torch.testing.assert_close(off, on, **MODEL_TOL)
 
 
+# The backward kernels at the same shapes as the forwards.
+BACKWARD_SNCV_SHAPES = LEVEL_SHAPES + [((2, 20, 24, 16), 1), ((2, 7, 5, 32), 2)]
+BACKWARD_SNCV_IDS = LEVEL_IDS + ["ragged-20x24", "ragged-7x5"]
+BACKWARD_DSCV_SHAPES = LEVEL_SHAPES + [((2, 24, 20, 16), 1),
+                                       ((2, 24, 20, 16), 4),
+                                       ((2, 7, 5, 16), 2)]
+BACKWARD_DSCV_IDS = LEVEL_IDS + ["ragged-24x20-cuts1", "ragged-24x20-cuts4",
+                                 "ragged-7x5"]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("same", [True, False], ids=["c1_is_c2", "c1_ne_c2"])
-@pytest.mark.parametrize("shape,cuts", [((2, 20, 24, 16), 1),
-                                        ((3, 6, 6, 192), 8)])
+@pytest.mark.parametrize("shape,cuts", BACKWARD_SNCV_SHAPES,
+                         ids=BACKWARD_SNCV_IDS)
 def test_sncv_backward_kernel_matches_plain(cuda, shape, cuts, same, dtype):
     rng = np.random.RandomState(1)
     c1 = torch.from_numpy(norm_cuts(rng.randn(*shape), cuts)).to(cuda, dtype)
@@ -231,15 +242,54 @@ def test_sncv_backward_kernel_matches_plain(cuda, shape, cuts, same, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("rot_dim", [3, 4])
-@pytest.mark.parametrize("cuts", [1, 4])
-def test_dscv_backward_kernel_matches_plain(cuda, cuts, rot_dim, dtype):
-    """Every input gradient: c1, c2, the previous parallax, the centre."""
-    args = dscv_inputs(h=24, w=20, C=16, cuts=cuts, rot_dim=rot_dim, seed=3)
-    rng = np.random.RandomState(4)
-    gcv = torch.from_numpy(rng.randn(2, 24, 20, 9 * cuts).astype(
+def test_sncv_backward_of_autocorrelation_is_one_kernel(cuda, dtype):
+    """With c1 is c2 the backward kernel writes the one gradient, the sum
+    of both: the Function returns it for its first input alone, so autograd
+    launches no add after the kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    rng = np.random.RandomState(2)
+    shape, cuts = (3, 24, 24, 96), 4
+    a = torch.from_numpy(norm_cuts(rng.randn(*shape), cuts)).to(
+        cuda, dtype).requires_grad_()
+    g = torch.from_numpy(rng.randn(*shape[:3], 49 * cuts).astype(
         np.float32)).to(cuda)
-    gpw = torch.from_numpy(rng.randn(2, 24, 20, 1).astype(np.float32)).to(cuda)
+    out = spatial_cost_volume_fused(a, a, 3, cuts, dtype)
+    torch.cuda.synchronize()
+    before = SNCV_BACKWARD_KERNEL.launches
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        (grad,) = torch.autograd.grad(out, a, g)
+        torch.cuda.synchronize()
+    assert SNCV_BACKWARD_KERNEL.launches == before + 1
+    kernels = [e.name for e in prof.events()
+               if e.device_type == DeviceType.CUDA]
+    assert len(kernels) == 1 and "sncv_backward" in kernels[0], kernels
+    ad = a.detach()
+    direct, none = _sncv_backward(g, ad, ad, out.detach(), 3, cuts, 0.1)
+    assert none is None and torch.equal(grad, direct)
+
+
+@pytest.mark.parametrize("centres", ["moderate", "far"])
+@pytest.mark.parametrize("want_dpara", [True, False],
+                         ids=["dpara", "no_dpara"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rot_dim", [3, 4])
+@pytest.mark.parametrize("shape,cuts", BACKWARD_DSCV_SHAPES,
+                         ids=BACKWARD_DSCV_IDS)
+def test_dscv_backward_kernel_matches_plain(cuda, shape, cuts, rot_dim, dtype,
+                                            want_dpara, centres):
+    """Every input gradient: c1, c2, the previous parallax (when it requires
+    grad), the centre. The far centres (400 on a sixth of the pixels, past
+    the 150 of every input) put samples far from their tile and on the
+    border clamp."""
+    b, h, w, C = shape
+    args = dscv_inputs(b=b, h=h, w=w, C=C, cuts=cuts, rot_dim=rot_dim, seed=3,
+                       far=400.0 if centres == "far" else None)
+    rng = np.random.RandomState(4)
+    gcv = torch.from_numpy(rng.randn(b, h, w, 9 * cuts).astype(
+        np.float32)).to(cuda)
+    gpw = torch.from_numpy(rng.randn(b, h, w, 1).astype(np.float32)).to(cuda)
     c1, c2, para, centre, rot, trans, f, c = (
         torch.from_numpy(a).to(cuda) for a in args)
     cam = Camera(f, c)
@@ -247,6 +297,7 @@ def test_dscv_backward_kernel_matches_plain(cuda, cuts, rot_dim, dtype):
     for fn in (parallax_sweeping_cv_fused, parallax_sweeping_cv):
         ins = [t.detach().clone().requires_grad_()
                for t in (c1.to(dtype), c2.to(dtype), para, centre)]
+        ins[2].requires_grad_(want_dpara)
         before = DSCV_BACKWARD_KERNEL.launches
         cv, pw = fn(*ins, rot, trans, cam, 4, cuts, dtype)
         ((cv * gcv).sum() + (pw * gpw).sum()).backward()
@@ -254,8 +305,11 @@ def test_dscv_backward_kernel_matches_plain(cuda, cuts, rot_dim, dtype):
         grads.append([t.grad for t in ins])
         if fn is parallax_sweeping_cv_fused:
             assert DSCV_BACKWARD_KERNEL.launches == before + 1
+    if not want_dpara:
+        assert grads[0][2] is None and grads[1][2] is None
+        grads = [[g[0], g[1], torch.zeros_like(para), g[3]] for g in grads]
     mask = tie_free_pixels(centre, rot, trans, cam, 4)
-    assert mask.float().mean() > 0.9
+    assert mask.float().mean() > 0.85
     assert_dscv_grads_close(*grads, dtype, mask)
 
 

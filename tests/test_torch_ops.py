@@ -21,7 +21,7 @@ from m4depth_tpu.geometry import Camera as JCamera
 from m4depth_tpu.ops import cost_volume as jcv
 from m4depth_tpu.ops.sncv_pallas import spatial_cost_volume_pallas
 from m4depth_tpu.ops.warp import dense_image_warp as jax_warp
-from m4depth_tpu_torch.geometry import Camera
+from m4depth_tpu_torch.geometry import Camera, parallax_sweep_flows
 from m4depth_tpu_torch.ops import (
     DSCV_KERNEL,
     SNCV_KERNEL,
@@ -158,7 +158,7 @@ def _jax_sncv_grads(c1, c2, g, cuts, same):
 
 
 @pytest.mark.parametrize("same", [True, False], ids=["c1_is_c2", "c1_ne_c2"])
-@pytest.mark.parametrize("cuts", [1, 2])
+@pytest.mark.parametrize("cuts", [1, 2, 4])
 def test_sncv_gradients_match_jax(cuts, same):
     """Autograd of the plain SNCV (the plain version of the backward
     kernel) against jax.grad of the XLA SNCV, float32. With c1 is c2 the
@@ -236,6 +236,71 @@ def test_dscv_gradients_match_jax(cuts):
         np.testing.assert_allclose(t.grad.numpy(), np.asarray(r),
                                    rtol=1e-3, atol=1e-4)
     assert np.abs(tin[3].grad.numpy()).max() > 1e-3
+
+
+# The regimes the card tests drive the DSCV backward kernel through, beyond
+# the quaternion and moderate centres above: (cuts, small-angle rotation,
+# sweep centres pushed past the border clamp, d para_prev_t asked for).
+DSCV_GRAD_REGIMES = {
+    "small_angle": (2, True, None, True),
+    "far_centres": (2, False, 60.0, True),
+    "no_dpara": (1, False, None, False),
+}
+
+
+@pytest.mark.parametrize("regime", list(DSCV_GRAD_REGIMES))
+def test_dscv_gradient_regimes_match_jax(regime):
+    """As ``test_dscv_gradients_match_jax``, in the regimes of the card
+    tests: the small-angle rotation; sweep centres of 60 on every third
+    pixel, whose samples leave the 10x10 image and clamp to its border;
+    and the previous parallax without a gradient (the model's case)."""
+    import jax
+
+    cuts, small_angle, far, want_dpara = DSCV_GRAD_REGIMES[regime]
+    x = _dscv_grad_inputs(cuts)
+    if small_angle:
+        x["rot"] = np.array([[0.01, -0.02, 0.005]], np.float32)
+    if far is not None:
+        x["centre"][:, ::3, 1::3] = far
+    cam = JCamera(jnp.asarray(x["f"]), jnp.asarray(x["c"]))
+
+    def jloss(fn, c1, c2, para, centre):
+        cv, pw = fn(c1, c2, para, centre, jnp.asarray(x["rot"]),
+                    jnp.asarray(x["trans"]), cam, 4, num_cuts=cuts,
+                    cv_dtype=jnp.float32)
+        return (cv * x["gcv"]).sum() + (pw[..., 4:5] * x["gpw"]).sum()
+
+    jin = [jnp.asarray(x[k]) for k in ("c1", "c2", "para", "centre")]
+    ref_gather = jax.grad(lambda *a: jloss(jcv.parallax_sweeping_cv, *a),
+                          argnums=(0, 1, 2, 3))(*jin)
+    split = functools.partial(jcv.parallax_sweeping_cv_split, n_chunks=3,
+                              bwd_impl="pallas")
+    ref_pallas = jax.grad(lambda *a: jloss(split, *a),
+                          argnums=(0, 1, 3))(*jin)
+
+    tin = [_t(x[k]).requires_grad_(k != "para" or want_dpara)
+           for k in ("c1", "c2", "para", "centre")]
+    cv, pw = parallax_sweeping_cv(
+        *tin, _t(x["rot"]), _t(x["trans"]), Camera(_t(x["f"]), _t(x["c"])),
+        4, cuts, torch.float32)
+    ((cv * _t(x["gcv"])).sum() + (pw * _t(x["gpw"])).sum()).backward()
+    assert (tin[2].grad is not None) == want_dpara
+    for t, r in zip(tin, ref_gather):
+        if t.grad is not None:
+            np.testing.assert_allclose(t.grad.numpy(), np.asarray(r),
+                                       rtol=1e-3, atol=1e-4)
+    for t, r in zip((tin[0], tin[1], tin[3]), ref_pallas):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(r),
+                                   rtol=1e-3, atol=1e-4)
+    assert np.abs(tin[3].grad.numpy()).max() > 1e-3
+    if far is not None:
+        # the far centres' samples did clamp: some hypotheses of those
+        # pixels sample the border, where the position gradient is cut
+        flows = parallax_sweep_flows(_t(x["centre"]), _t(x["rot"]),
+                                     _t(x["trans"]),
+                                     Camera(_t(x["f"]), _t(x["c"])), 4)
+        q = flows[..., 0] + torch.arange(10.0)
+        assert bool(((q < 0) | (q > 9)).any())
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
