@@ -42,7 +42,19 @@ exits non-zero and prints no result line:
    beside its plain version's time and its bound; each backward kernel
    both as called directly and through autograd of its fused wrapper, as
    the model calls it (the SNCV with c1 is c2);
-11. one JSON line listing the four kernels, then the result line
+11. the command line, ``m4depth_tpu_torch.cli.main.main(argv)`` in this
+   process, on a synthetic Mid-Air record store written with the port's
+   ``make_sequence`` and ``RecordStoreWriter`` (4 trajectories of 32
+   frames at 384x384): train d6 b=3 T=4 bf16 for 10 steps over 2 epochs
+   (each kernel's launches counted), resume to 15 steps, train with
+   ``--augment_device``, validation (ledger and validation-perfs.txt),
+   eval (perfs-midair.txt, the forward kernels' launches), the CLI's
+   streaming depth against ``M4Depth.step`` on one trajectory (bitwise),
+   predict; then the record-store loader alone. It prints, each beside the
+   card's name and power limit, the train mode's ms/step beside phase 8's
+   (no loading), the loader's batches/s, the eval mode's ms/frame and the
+   peak device memory above the phase's baseline;
+12. one JSON line listing the four kernels, then the result line
    ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device it exits with code 2 before running anything.
@@ -50,11 +62,16 @@ Without a CUDA device it exits with code 2 before running anything.
 
 from __future__ import annotations
 
+import argparse
 import contextlib
+import io
 import json
+import os
+import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
@@ -715,6 +732,275 @@ def phase_train_path(dev):
                 per_step=per_step, ms_per_step=med)
 
 
+# -- phase 11 ---------------------------------------------------------------
+
+# the CLI's path: a synthetic Mid-Air record store of STORE_TRAJ
+# trajectories of STORE_FRAMES frames at SIZE x SIZE, each trajectory made
+# of scenes of SCENE_FRAMES frames (a scene starts with new_traj)
+STORE_TRAJ, STORE_FRAMES, SCENE_FRAMES = 4, 32, 8
+CLI_TRAIN_STEPS, CLI_RESUME_STEPS, CLI_AUGMENT_STEPS = 10, 15, 5
+CLI_VALIDATION_WINDOWS = 8
+CHILD_TIMEOUT_S = 300
+CLI_LOG_EVERY = 5
+
+
+def write_synthetic_store(root: str) -> str:
+    """A record store written with the port's ``make_sequence`` and
+    ``RecordStoreWriter``, and a dataset-location file naming it; returns
+    the location file's path."""
+    from m4depth_tpu_torch.data.records import RecordStoreWriter
+    from m4depth_tpu_torch.data.synthetic import make_sequence
+
+    store = os.path.join(root, "store")
+    writer = RecordStoreWriter(store, num_shards=4)
+    for t in range(STORE_TRAJ):
+        frames = []
+        for s in range(STORE_FRAMES // SCENE_FRAMES):
+            seq = make_sequence(np.random.RandomState(100 * t + s),
+                                SCENE_FRAMES, SIZE, SIZE)
+            for i in range(SCENE_FRAMES):
+                frames.append(dict(
+                    RGB_im=seq["RGB_im"][i], depth=seq["depth"][i],
+                    rot=seq["rot"][i], trans=seq["trans"][i],
+                    camera_f=seq["camera_f"], camera_c=seq["camera_c"],
+                    new_traj=np.bool_(i == 0)))
+        writer.write_trajectory(frames, name=f"traj_{t:04d}")
+    writer.close()
+    location = os.path.join(root, "datasets_location.json")
+    with open(location, "w") as f:
+        json.dump({"midair": store}, f)
+    return location
+
+
+def run_cli(argv) -> str:
+    """``m4depth_tpu_torch.cli.main.main(argv)`` in this process; raises
+    unless it returns 0. Returns what it printed (also echoed, indented)."""
+    from m4depth_tpu_torch.cli.main import main as cli_main
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli_main(argv)
+    for line in out.getvalue().splitlines():
+        log(f"    | {line}")
+    check(rc == 0, f"CLI {argv[0]} returned {rc}")
+    return out.getvalue()
+
+
+def launch_counts() -> dict:
+    return {k: kern.launches for k, kern in KERNELS.items()}
+
+
+def parsed(pattern: str, text: str, what: str) -> float:
+    found = re.findall(pattern, text)
+    check(bool(found), f"{what} in the CLI's output")
+    return float(found[-1])
+
+
+def phase_cli(dev, train_ms_no_loading: float) -> dict:
+    """The CLI's train (twice: fresh, then resumed), train with
+    --augment_device, eval and predict modes, in process, and its
+    validation mode in the child that ``SubprocessValidator`` spawns on the
+    card, on a synthetic record store at d6 384x384; then the CLI's
+    streaming path against ``M4Depth.step`` on one trajectory, and the
+    loader alone."""
+    from m4depth_tpu_torch.cli.main import (
+        SubprocessValidator,
+        build_dataset,
+        build_model,
+        predict_stream,
+        restore_params_for_eval,
+    )
+    from m4depth_tpu_torch.cli.options import (
+        build_parser,
+        model_config_from_args,
+    )
+    from m4depth_tpu_torch.data.records import RecordTrajectoryReader
+    from m4depth_tpu_torch.train.loop import to_device
+
+    t_phase = time.perf_counter()
+    card = gpu_name_and_power_limit()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = {}
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        location = write_synthetic_store(root)
+        store = os.path.join(root, "store")
+        log(f"  store: {STORE_TRAJ} trajectories x {STORE_FRAMES} frames at "
+            f"{SIZE}x{SIZE}, {sum(os.path.getsize(os.path.join(store, n)) for n in os.listdir(store))} "
+            f"bytes, written in {time.perf_counter() - t0:.3f} s")
+        common = ["--dataset=midair", f"--db_path_config={location}",
+                  f"--record_store={store}", "--arch_depth=6",
+                  "--out_size", str(SIZE), str(SIZE), "--num_workers=8"]
+        # a loss printed every CLI_LOG_EVERY steps; fit's tripwire checks
+        # every loss and raises on one that is not finite
+        train_args = common + ["--batch_size=3", "--seq_len=4",
+                               "--db_seq_len=8",
+                               f"--summary_interval={CLI_LOG_EVERY}"]
+        ckpt = os.path.join(root, "ckpt")
+
+        # 1. train 2 epochs; the counts are zeroed just before, read after
+        zero_launch_counts()
+        text = run_cli(["--mode=train", f"--ckpt_dir={ckpt}",
+                        f"--total_steps={CLI_TRAIN_STEPS}"] + train_args)
+        out["train_launches"] = launch_counts()
+        per_step = (TRAIN_T - 1) * 6
+        for k, n in out["train_launches"].items():
+            check(n == per_step * CLI_TRAIN_STEPS,
+                  f"CLI train: {k} {n} launches in {CLI_TRAIN_STEPS} steps")
+        ms_step = parsed(r"step ms median ([0-9.]+)", text, "step time")
+        losses = [float(v) for v in re.findall(r"loss=([^ ]+)", text)]
+        saved = sorted(os.listdir(os.path.join(ckpt, "train")))
+        check(saved == ["0.pt", "1.pt"], f"checkpoints after 2 epochs: {saved}")
+
+        # 2. resume to a larger total: epoch 2 only, from step 10
+        text = run_cli(["--mode=train", f"--ckpt_dir={ckpt}",
+                        f"--total_steps={CLI_RESUME_STEPS}"] + train_args)
+        check("Resuming from epoch 2" in text, "the second run resumed")
+        resumed = torch.load(os.path.join(ckpt, "train", "2.pt"),
+                             map_location="cpu", weights_only=True)
+        check(resumed["count"] == CLI_RESUME_STEPS and resumed["epoch"] == 2,
+              f"resumed run ended at update {resumed['count']}, epoch "
+              f"{resumed['epoch']}")
+        for name in ("0.pt", "1.pt", "2.pt"):
+            sd = torch.load(os.path.join(ckpt, "train", name),
+                            map_location="cpu", weights_only=True)
+            check(all(bool(torch.isfinite(v).all())
+                      for v in sd["model"].values()),
+                  f"finite weights in {name}")
+
+        # 3. train with the augmentation on the device
+        zero_launch_counts()
+        run_cli(["--mode=train", f"--ckpt_dir={os.path.join(root, 'aug')}",
+                 f"--total_steps={CLI_AUGMENT_STEPS}", "--augment_device"]
+                + train_args)
+        aug = launch_counts()
+        check(all(n == per_step * CLI_AUGMENT_STEPS for n in aug.values()),
+              f"CLI train --augment_device launches {aug}")
+
+        # 4. validation of the latest checkpoint, by the child process that
+        # per-epoch subprocess validation spawns, on the card
+        vcmd = build_parser(argparse.ArgumentParser()).parse_args(
+            ["--mode=train", f"--ckpt_dir={ckpt}", "--validation_device=gpu",
+             f"--validation_max_batches={CLI_VALIDATION_WINDOWS}"] + common)
+        child = SubprocessValidator(vcmd)
+        check("--platform=gpu" in child.args, "the validation child's "
+              f"platform: {child.args}")
+        # its KITTI set is not in the repository, and this host could not
+        # decode its PNGs: the store's flags, appended, win in its parser
+        child.args += ["--dataset=midair", f"--db_path_config={location}",
+                       f"--record_store={store}",
+                       "--out_size", str(SIZE), str(SIZE)]
+        t0 = time.perf_counter()
+        child(None)
+        while child.busy and time.perf_counter() - t0 < CHILD_TIMEOUT_S:
+            time.sleep(0.2)
+        if child.busy:
+            child._child.kill()  # stopped before the check fails the phase
+        child.close()
+        out["child_s"] = time.perf_counter() - t0
+        with open(os.path.join(ckpt, "validation-subprocess.log")) as f:
+            for line in f.read().splitlines():
+                log(f"    child | {line}")
+        check(child.spawned == 1 and child.failed == 0,
+              f"validation child on the card: {child.failed} failed")
+        log(f"  validation child on the card ({CLI_VALIDATION_WINDOWS} "
+            f"windows of 4 frames): {out['child_s']:.3f} s from spawn to "
+            "exit")
+        with open(os.path.join(ckpt, "best", "validation_perfs.csv")) as f:
+            rows = f.read().splitlines()
+        check(len(rows) == 2 and rows[1].endswith("ckpt-0002"),
+              f"best-checkpoint ledger {rows}")
+        with open(os.path.join(ckpt, "validation-perfs.txt")) as f:
+            check(len(f.read().split()) == 7, "validation-perfs.txt")
+
+        # 5. eval (streaming, every frame of the store)
+        zero_launch_counts()
+        text = run_cli(["--mode=eval", f"--ckpt_dir={ckpt}"] + common)
+        out["eval_launches"] = launch_counts()
+        n_frames = STORE_TRAJ * STORE_FRAMES
+        for k, n in out["eval_launches"].items():
+            want = 6 * n_frames if k in FORWARD else 0
+            check(n == want, f"CLI eval: {k} {n} launches, expected {want}")
+        ms_frame = parsed(r"evaluated \d+ frames in [0-9.]+ s \(([0-9.]+) "
+                          r"ms/frame", text, "eval time")
+        perfs = np.loadtxt(os.path.join(ckpt, "perfs-midair.txt"))
+        check(perfs.shape == (7,) and bool(np.isfinite(perfs).all()),
+              f"perfs-midair.txt {perfs}")
+        log(f"  perfs-midair.txt: {perfs.tolist()}")
+
+        # the CLI's streaming path against M4Depth.step on trajectory 0
+        cmd = build_parser(argparse.ArgumentParser()).parse_args(
+            ["--mode=eval", f"--ckpt_dir={ckpt}"] + common)
+        model = build_model(cmd, model_config_from_args(cmd), dev)
+        restore_params_for_eval(cmd, model, "best")
+        stream = predict_stream(model, build_dataset(cmd, "eval", {}, 1))
+        cli_depths = [d for _, (_, d) in zip(range(STORE_FRAMES), stream)]
+        stream.close()
+        frames = RecordTrajectoryReader(store).read_frames(0, 0, STORE_FRAMES)
+        state = init_state(model.cfg, 1, SIZE, SIZE, device=dev)
+        for i, fr in enumerate(frames):
+            # stacked, as the loader batches frames: a [None] view has a
+            # zero batch stride, and cuDNN may take another engine for it
+            x = to_device({k: np.stack([fr[k]]) for k in (
+                "RGB_im", "rot", "trans", "camera_f", "camera_c")}, dev)
+            # a stored flag reads back as shape [1]; the step takes [b]
+            reset = torch.tensor([bool(fr["new_traj"]) or i == 0],
+                                 device=dev)
+            state, depth = model.step(state, x["RGB_im"], x["rot"],
+                                      x["trans"],
+                                      Camera(x["camera_f"], x["camera_c"]),
+                                      reset)
+            check(torch.equal(depth, cli_depths[i]),
+                  f"CLI streaming depth of frame {i} equals M4Depth.step's")
+        log(f"  the CLI's streaming depth equals M4Depth.step's on all "
+            f"{STORE_FRAMES} frames of trajectory 0 (bitwise)")
+
+        # 6. predict
+        zero_launch_counts()
+        run_cli(["--mode=predict", f"--ckpt_dir={ckpt}"] + common)
+        n = KERNELS["sncv_forward"].launches
+        check(n == 6 * n_frames, f"CLI predict: {n} SNCV launches")
+
+        # the loader alone, as the train mode builds it: two epochs
+        tcmd = build_parser(argparse.ArgumentParser()).parse_args(
+            ["--mode=train"] + train_args)
+        ds = build_dataset(tcmd, "train", {}, tcmd.batch_size)
+        loader = {}
+        for name, copy in (("loader", False), ("loader + copy", True)):
+            t0, n = time.perf_counter(), 0
+            for epoch in range(2):
+                for batch in ds.batches(epoch):
+                    if copy:
+                        to_device(batch, dev)
+                    n += 1
+            torch.cuda.synchronize()
+            loader[name] = n / (time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated() - base
+    log(f"  [{card}] train mode, d6 {SIZE}x{SIZE} b=3 T=4 bf16 from the "
+        f"store (host augmentation): {ms_step:.3f} ms/step, median of the "
+        f"steps after the first of {CLI_TRAIN_STEPS}")
+    log(f"  [{card}] the same step without loading (phase 8, one batch "
+        f"reused): {train_ms_no_loading:.3f} ms/step")
+    log(f"  [{card}] record-store loader, no model, b=3 T=4 with host "
+        f"augmentation, {n} batches: {loader['loader']:.3f} batches/s "
+        f"({1e3 / loader['loader']:.3f} ms/batch); with the pinned copy to "
+        f"the card {loader['loader + copy']:.3f} batches/s")
+    log(f"  [{card}] eval mode, streaming d6 {SIZE}x{SIZE} b=1 bf16, "
+        f"{n_frames} frames: {ms_frame:.3f} ms/frame, loading included")
+    log(f"  [{card}] peak device memory above the phase's baseline: "
+        f"{peak} bytes ({peak / 2 ** 30:.3f} GiB)")
+    log(f"  CLI train losses logged (every {CLI_LOG_EVERY} steps; the "
+        "tripwire checked every step's): "
+        + ", ".join(f"{v:.5g}" for v in losses))
+    check(losses and all(np.isfinite(v) for v in losses),
+          "finite train losses")
+    log(f"  phase 11 took {time.perf_counter() - t_phase:.1f} s")
+    out.update(ms_step=ms_step, ms_frame=ms_frame, loader=loader, peak=peak)
+    return out
+
+
 # -- phases 9 and 10 -------------------------------------------------------
 
 
@@ -985,6 +1271,10 @@ def main() -> int:
     log(f"== phase 10: kernel device times per level shape, b={TRAIN_B} "
         f"(training), bf16; per step each level runs {TRAIN_T - 1} times")
     totals = phase_kernel_times(serving, dev, TRAIN_B, True, TRAIN_T - 1)
+    log(f"== phase 11: the CLI (m4depth_tpu_torch.cli.main) on a synthetic "
+        f"record store, d6 {SIZE}x{SIZE}: train, resume, --augment_device, "
+        "validation (a child process on the card), eval, predict")
+    cli = phase_cli(dev, train["ms_per_step"])
 
     kernels = []
     for key, info in KERNEL_INFO.items():
@@ -995,6 +1285,9 @@ def main() -> int:
             name=key, route="cuda", **info,
             # the training path's count: it runs all four kernels
             launches=n_train, launches_per_step=n_train // train["n_steps"],
+            # phase 11: the CLI's first train run, and its eval run
+            cli_train_launches=cli["train_launches"][key],
+            cli_eval_launches=cli["eval_launches"][key],
             serving_launches=n_serve,
             serving_launches_per_frame=n_serve // serve["n_frames"],
             max_abs_err=worst[key],

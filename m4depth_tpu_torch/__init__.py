@@ -15,7 +15,8 @@ import torch
 
 from m4depth_tpu_torch.config import AblationFlags, ModelConfig, TrainConfig
 
-__all__ = ["AblationFlags", "ModelConfig", "TrainConfig", "resolve_device"]
+__all__ = ["AblationFlags", "ModelConfig", "TrainConfig", "mix_seed",
+           "resolve_device"]
 
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None
@@ -31,3 +32,12 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
             "no CUDA device is available; pass device='cpu' to run the "
             "plain PyTorch versions on the CPU")
     return dev
+
+
+def mix_seed(*parts: int) -> int:
+    """One 63-bit ``torch.Generator`` seed from a tuple of non-negative
+    ints, such as (seed, step, index): a stream keyed by the tuple."""
+    h = 0
+    for p in parts:
+        h = (h * 1_000_003 + int(p) + 1) % (2 ** 63 - 25)
+    return h

@@ -1,9 +1,9 @@
-"""Model and optimisation configuration of the PyTorch port.
+"""Model, optimisation and harness configuration of the PyTorch port.
 
 The model fields of ``m4depth_tpu.config.ModelConfig``, the whole of
-``AblationFlags`` and the optimisation fields of ``TrainConfig``, copied so
-that this package imports nothing of the JAX one. The JAX package's TPU
-layout knobs (``dscv_*``, ``sncv_impl``,
+``AblationFlags``, ``TrainConfig`` without its mesh fields, and
+``load_dataset_locations``, copied so that this package imports nothing of
+the JAX one. The JAX package's TPU layout knobs (``dscv_*``, ``sncv_impl``,
 ``scan_unroll``, ``remat*``, ``time_axis``) have no counterpart: which
 implementation of a cost volume runs is decided by the device its inputs
 lie on.
@@ -12,7 +12,9 @@ lie on.
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+import json
+import os
+from typing import Optional, Tuple
 
 import torch
 
@@ -76,11 +78,33 @@ class ModelConfig:
 
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
-    """Optimisation settings (the reference's Adam at 1e-4 for 220k
-    steps)."""
+    """Optimisation and harness settings (the reference's Adam at 1e-4 for
+    220k steps, seed 42, the last 5 epochs kept). The JAX package's mesh
+    fields have no counterpart: the port trains on one device."""
 
     learning_rate: float = 1e-4
     lr_schedule: str = "constant"     # "constant" | "staircase" (halve at
                                       # 60k/120k/180k/240k/300k) | "cosine"
     grad_clip_norm: float = 0.0       # global-norm gradient clip; 0 = off
     total_steps: int = 220_000
+    finetune_steps: int = 20_000
+    seed: int = 42
+    ckpt_dir: str = "ckpt"
+    log_dir: Optional[str] = None
+    keep_last_n: int = 5              # rolling checkpoints kept
+    keep_top_n: int = 1               # BestCheckpointManager keep_top_n
+    summary_interval: int = 1200
+    enable_validation: bool = False
+
+
+def load_dataset_locations(path: str) -> dict:
+    """Load the ``datasets_location.json`` mapping, with relative paths
+    taken from the file's own directory."""
+    with open(path) as f:
+        mapping = json.load(f)
+    root = os.path.dirname(os.path.abspath(path))
+    return {
+        name: (p if os.path.isabs(p)
+               else os.path.normpath(os.path.join(root, p)))
+        for name, p in mapping.items()
+    }

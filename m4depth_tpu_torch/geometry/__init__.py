@@ -8,6 +8,8 @@ from m4depth_tpu_torch.geometry.parallax import (
     parallax_sweep_flows,
     parallax_to_depth,
     prev_depth_to_parallax,
+    reprojection_flow,
+    reproject,
 )
 from m4depth_tpu_torch.geometry.resize import (
     resize_bilinear,
@@ -19,6 +21,7 @@ from m4depth_tpu_torch.geometry.rotations import rot_mat
 __all__ = [
     "Camera", "EpipolarTerms", "depth_to_parallax", "epipolar_terms",
     "parallax_sweep_flows", "parallax_to_depth", "pixel_grid",
-    "prev_depth_to_parallax", "resize_bilinear", "resize_bilinear_v1",
+    "prev_depth_to_parallax", "reproject", "reprojection_flow",
+    "resize_bilinear", "resize_bilinear_v1",
     "resize_nearest", "rot_mat", "scale_camera",
 ]

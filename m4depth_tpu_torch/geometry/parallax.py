@@ -9,7 +9,7 @@ Counterpart of ``m4depth_tpu/geometry/parallax.py`` (same definitions):
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -125,3 +125,31 @@ def parallax_sweep_flows(parallax: torch.Tensor, rot: torch.Tensor,
     unit = e.delta / torch.clamp(e.rho, min=1e-12)
     target = e.proj[:, None] + unit[:, None] * disp_k    # [b,s,h,w,2]
     return target - e.mesh[:, None]
+
+
+def reprojection_flow(depth: torch.Tensor, rot: torch.Tensor,
+                      trans: torch.Tensor, camera: Camera) -> torch.Tensor:
+    """Flow field induced by camera motion over a depth map [b,h,w,1].
+
+    Backward-warp convention: the sampling position of output pixel p is
+    ``index_grid(p) + flow(p)``, flow ordered (dx, dy). The 3-D point
+    ``ray * depth`` is projected through ``K [R|t]``.
+    """
+    b, h, w = depth.shape[:3]
+    coords, mesh = pixel_grid(h, w, camera)
+    point = coords * depth                               # [b,h,w,3]
+    moved = _apply_rot(rot_mat(rot), point) + trans.reshape(b, 1, 1, 3)
+    f_xy = camera.f.reshape(b, 1, 1, 2)
+    proj = moved[..., :2] * f_xy / moved[..., 2:3]       # pixels rel. to c
+    return proj - mesh
+
+
+def reproject(fmap: torch.Tensor, depth: torch.Tensor, rot: torch.Tensor,
+              trans: torch.Tensor, camera: Camera
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Warp ``fmap`` [b,h,w,c] into the current frame using depth and
+    motion; returns the warped map and the flow."""
+    from m4depth_tpu_torch.ops.warp import dense_image_warp
+
+    flow = reprojection_flow(depth, rot, trans, camera)
+    return dense_image_warp(fmap, flow), flow

@@ -2,7 +2,8 @@
 
 from m4depth_tpu_torch.interop.from_jax import (
     load_jax_params,
+    save_jax_checkpoint,
     state_dict_from_jax,
 )
 
-__all__ = ["load_jax_params", "state_dict_from_jax"]
+__all__ = ["load_jax_params", "save_jax_checkpoint", "state_dict_from_jax"]

@@ -9,15 +9,19 @@ imports no JAX. Names map as follows:
   level_{i+1}/refiner/{prep,est}_{j}/... -> levels.{i}.refiner.{prep,est}.{j}...
 
 Conv kernels are HWIO there and OIHW here (``transpose(3, 2, 0, 1)``).
+``save_jax_checkpoint`` writes such a tree as a checkpoint of this
+package's CLI.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Dict, Mapping
 
 import numpy as np
 import torch
 
+from m4depth_tpu_torch.config import ModelConfig
 from m4depth_tpu_torch.models.m4depth import M4Depth
 
 
@@ -84,3 +88,25 @@ def load_jax_params(model: M4Depth, params: Mapping) -> M4Depth:
     """Load the JAX tree ``params`` into ``model`` (in place) and return it."""
     model.load_state_dict(state_dict_from_jax(params, model), strict=True)
     return model
+
+
+def save_jax_checkpoint(params: Mapping, step: int, cfg: ModelConfig,
+                        ckpt_dir: str, epoch: int = 0) -> str:
+    """Write a JAX ``TrainState``'s weights as this package's checkpoint.
+
+    ``params`` is the state's ``params`` as a numpy tree (with or without
+    its top ``"params"`` key), ``step`` its step count. The checkpoint goes
+    to ``ckpt_dir/train/<epoch>.pt``, where ``--mode=eval`` and
+    ``--mode=predict`` load it; its Adam state is fresh (no moments), with
+    the schedule's count at ``step``. Returns the file's path.
+    """
+    from m4depth_tpu_torch.train import create_train_state
+    from m4depth_tpu_torch.train.checkpoints import TrainCheckpointManager
+
+    tree = params.get("params", params)
+    state = create_train_state(load_jax_params(
+        M4Depth(cfg, device="cpu"), tree))
+    state.optimizer.count = int(step)
+    mgr = TrainCheckpointManager(os.path.join(ckpt_dir, "train"))
+    mgr.save(epoch, state)
+    return mgr.path(epoch)

@@ -26,8 +26,13 @@ def dense_image_warp(image: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
     qx = gx + flo[..., 0]
     qy = gy + flo[..., 1]
 
-    x0f = torch.clamp(torch.floor(qx), 0.0, float(max(w - 2, 0)))
-    y0f = torch.clamp(torch.floor(qy), 0.0, float(max(h - 2, 0)))
+    # a NaN position (from a NaN input) takes the index 0, as the kernel's
+    # fmaxf does, and its NaN fraction makes the output NaN: an index cast
+    # from NaN would fall outside the image
+    x0f = torch.clamp(torch.floor(qx).nan_to_num(0.0), 0.0,
+                      float(max(w - 2, 0)))
+    y0f = torch.clamp(torch.floor(qy).nan_to_num(0.0), 0.0,
+                      float(max(h - 2, 0)))
     ax = torch.clamp(qx - x0f, 0.0, 1.0).to(image.dtype)[..., None]
     ay = torch.clamp(qy - y0f, 0.0, 1.0).to(image.dtype)[..., None]
     base = (y0f.long() * w + x0f.long()).reshape(b, h * w, 1)

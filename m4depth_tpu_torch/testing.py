@@ -35,6 +35,11 @@ DSCV_PARA_TOL = dict(rtol=1e-4, atol=5e-4)
 # ~1e-4 stay ~1e-4 in depth.
 MODEL_TOL = dict(rtol=1e-3, atol=1e-4)
 
+# The evaluator's metrics accumulated on the card against the CPU's
+# accumulation of the same depths (the card's, copied): the same float32
+# arithmetic per pixel, sums and means in other orders.
+EVAL_METRIC_TOL = dict(rtol=1e-5, atol=1e-6)
+
 # Backward kernels against autograd of the plain forward, as (rtol, atol as
 # a fraction of the largest reference value).
 #   float32: the same products summed in another order, the DSCV's dc2 and

@@ -3,7 +3,9 @@
 from m4depth_tpu_torch.train.step import (
     Batch,
     Optimizer,
+    TrainState,
     batch_camera,
+    create_train_state,
     make_lr_schedule,
     make_optimizer,
     make_streaming_eval_step,
@@ -12,7 +14,8 @@ from m4depth_tpu_torch.train.step import (
 )
 
 __all__ = [
-    "Batch", "Optimizer", "batch_camera", "make_lr_schedule",
+    "Batch", "Optimizer", "TrainState", "batch_camera", "create_train_state",
+    "make_lr_schedule",
     "make_optimizer", "make_streaming_eval_step", "make_train_step",
     "make_windowed_eval_step",
 ]

@@ -4,7 +4,8 @@ One optimisation step over a ``[b, T, ...]`` window: the window forward,
 the loss, autograd (through the cost-volume kernels' backward on the card),
 an optional global-norm clip and Adam, as ``optax.chain(clip, adam)`` does
 it. Every scalar a step returns is a 0-d tensor: nothing waits for the
-device inside a step.
+device inside a step. ``TrainState`` (the model and its optimiser) is what
+a checkpoint holds.
 
 Training batch (a dict of tensors on the model's device):
   rgb      [b, T, h, w, 3] float32 in [0, 1]
@@ -18,12 +19,12 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, Dict, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
 from m4depth_tpu_torch.config import TrainConfig
-from m4depth_tpu_torch.geometry import Camera
+from m4depth_tpu_torch.geometry import Camera, reproject
 from m4depth_tpu_torch.metrics import (
     MetricAccumulator,
     clip_for_eval,
@@ -125,23 +126,104 @@ def make_optimizer(model: torch.nn.Module,
     return Optimizer(adam, schedule, cfg.grad_clip_norm)
 
 
+def _to_cpu(obj: Any) -> Any:
+    """A copy of ``obj`` with every tensor copied to the CPU: a saved state
+    shares no storage with tensors that later steps update in place."""
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().to("cpu", copy=True)
+    if isinstance(obj, dict):
+        return {k: _to_cpu(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_to_cpu(v) for v in obj)
+    return obj
+
+
+@dataclasses.dataclass
+class TrainState:
+    """The model and its optimiser: the port's counterpart of the JAX
+    package's ``TrainState`` (params, Adam state, step)."""
+
+    model: M4Depth
+    optimizer: Optimizer
+
+    @property
+    def step(self) -> int:
+        """Updates applied so far (the schedule's count)."""
+        return self.optimizer.count
+
+    def state_dict(self) -> dict:
+        """The model's weights, the Adam state (its per-parameter step
+        counts included) and the schedule's count, copied to the CPU."""
+        return _to_cpu({"model": self.model.state_dict(),
+                        "adam": self.optimizer.adam.state_dict(),
+                        "count": self.optimizer.count})
+
+    def load_state_dict(self, state: dict) -> "TrainState":
+        self.model.load_state_dict(state["model"], strict=True)
+        self.optimizer.adam.load_state_dict(state["adam"])
+        self.optimizer.count = int(state["count"])
+        return self
+
+
+def create_train_state(model: M4Depth,
+                       cfg: TrainConfig = TrainConfig()) -> TrainState:
+    """``model`` with a fresh optimiser at ``cfg``'s settings."""
+    return TrainState(model, make_optimizer(model, cfg))
+
+
 def _rmse_log(gt: torch.Tensor, est: torch.Tensor) -> torch.Tensor:
     """The train-time monitoring metric."""
     return compute_metrics(*clip_for_eval(gt, est))["RMSE_log"]
 
 
-def make_train_step(model: M4Depth, optimizer: Optimizer
-                    ) -> Callable[[Batch], Dict[str, torch.Tensor]]:
+def _summary_images(batch: Batch, preds, camera: Camera
+                    ) -> Dict[str, torch.Tensor]:
+    """Image summaries from tensors the train forward already computed: the
+    input frame, the previous frame reprojected through the ground truth
+    (a check of the motion and intrinsics), and the ground truth and each
+    level's estimate as normalised log-depth; first batch element only."""
+    max_d = 200.0
+    gt = batch["depth"][:, -1]
+    reproj, _ = reproject(batch["rgb"][:, -2], gt, batch["rot"][:, -1],
+                          batch["trans"][:, -1], camera)
+
+    def log_norm(x):
+        return torch.log(torch.clamp(x.float(), 1.0, max_d)) / math.log(max_d)
+
+    images = {
+        "RGB_im": batch["rgb"][0, -1],
+        "camera_prev_t_reproj": reproj[0],
+        "depth_gt": log_norm(gt[0]),
+    }
+    for i, est in enumerate(preds[-1]):
+        images[f"depth_lvl_{i}"] = log_norm(est.depth[0])
+    return {k: v.detach() for k, v in images.items()}
+
+
+def make_train_step(
+    model: M4Depth,
+    optimizer: Optimizer,
+    with_images: bool = False,
+    augment_fn: Optional[Callable[[Batch, int, int], Batch]] = None,
+    augment_seed: int = 0,
+) -> Callable[[Batch], Dict[str, torch.Tensor]]:
     """One optimisation step over a [b, T, ...] window.
 
     ``train_step(batch)`` updates the model's parameters in place and
     returns ``{"loss", "RMSE_log", "grad_norm"}`` as 0-d tensors: the loss
     and RMSE_log (last frame, full resolution, eval clipping) of the
     parameters before the update, and the global gradient norm before the
-    clip.
+    clip. ``with_images=True`` adds ``"images"``, made from the same
+    forward (``_summary_images``).
+
+    ``augment_fn(batch, seed, step)`` (``data.augment_device``), when
+    given, augments the batch inside the step, keyed by ``augment_seed``
+    and the optimiser's count of updates.
     """
 
     def train_step(batch: Batch) -> Dict[str, torch.Tensor]:
+        if augment_fn is not None:
+            batch = augment_fn(batch, augment_seed, optimizer.count)
         camera = batch_camera(batch)
         preds = model(batch["rgb"], batch["rot"], batch["trans"], camera)
         loss = model.loss(batch["depth"], preds)
@@ -151,8 +233,11 @@ def make_train_step(model: M4Depth, optimizer: Optimizer
         with torch.no_grad():
             gt = batch["depth"][:, -1]
             rmse = _rmse_log(gt, model.final_depth(preds, gt.shape[1:3]))
-        return {"loss": loss.detach(), "RMSE_log": rmse,
-                "grad_norm": grad_norm}
+            out = {"loss": loss.detach(), "RMSE_log": rmse,
+                   "grad_norm": grad_norm}
+            if with_images:
+                out["images"] = _summary_images(batch, preds, camera)
+        return out
 
     return train_step
 

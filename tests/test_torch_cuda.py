@@ -383,3 +383,127 @@ def test_train_step_on_card_matches_cpu(cuda):
     assert_train_step_close(grads["cuda"], grads["cpu"], params["cuda"],
                             params["cpu"], lr=1e-4)
     assert float(grads["cuda"]["encoder.conv_s1.0.weight"].abs().max()) > 0
+
+
+# -- the harness on the card ------------------------------------------------
+
+
+D3 = dict(num_levels=3, encoder_channels=(8, 12, 16),
+          refiner_prep_channels=(16, 16, 8), refiner_est_channels=(8, 8, 5),
+          compute_dtype="float32", cv_dtype="float32")
+
+
+def test_fit_from_a_record_store_on_card(cuda, tmp_path):
+    """``fit`` for 3 steps of d3 at 64x64 from a record store of synthetic
+    scenes: each kernel launched every step, a checkpoint with finite
+    weights and the count of 3."""
+    from m4depth_tpu_torch.data.records import (
+        RecordSequenceDataset,
+        RecordStoreWriter,
+    )
+    from m4depth_tpu_torch.data.synthetic import make_sequence
+    from m4depth_tpu_torch.train.loop import fit
+
+    writer = RecordStoreWriter(str(tmp_path / "store"), num_shards=2)
+    for t in range(3):
+        seq = make_sequence(np.random.RandomState(t), 8, 64, 64)
+        writer.write_trajectory([
+            {k: (v[i] if k in ("RGB_im", "depth", "rot", "trans") else v)
+             for k, v in seq.items()} for i in range(8)])
+    writer.close()
+    ds = RecordSequenceDataset(str(tmp_path / "store"), usecase="train",
+                               db_seq_len=4, seq_len=3, batch_size=2,
+                               augment=False, num_workers=2)
+    assert len(ds) == 3
+    before = {k.symbol: k.launches for k in (
+        SNCV_KERNEL, DSCV_KERNEL, SNCV_BACKWARD_KERNEL, DSCV_BACKWARD_KERNEL)}
+    state = fit(M4Depth(ModelConfig(**D3), device=cuda, seed=1), ds,
+                TrainConfig(ckpt_dir=str(tmp_path / "ckpt")), total_steps=3)
+    torch.cuda.synchronize()
+    for k in (SNCV_KERNEL, DSCV_KERNEL, SNCV_BACKWARD_KERNEL,
+              DSCV_BACKWARD_KERNEL):
+        assert k.launches - before[k.symbol] == 3 * 2 * 3, k.symbol
+    saved = torch.load(tmp_path / "ckpt" / "train" / "0.pt",
+                       weights_only=True)
+    assert saved["count"] == state.step == 3
+    assert all(bool(torch.isfinite(v).all()) for v in saved["model"].values())
+
+
+class _Frames:
+    """Six frames of one batch element, mostly lateral motion (a well
+    conditioned recurrence), a reset at frames 0 and 3."""
+
+    db_seq_len = None
+
+    def __init__(self, hw=64, seed=3):
+        rng = np.random.RandomState(seed)
+        self.items = [{
+            "rgb": rng.rand(1, hw, hw, 3).astype(np.float32),
+            "depth": (1 + 60 * rng.rand(1, hw, hw, 1)).astype(np.float32),
+            "rot": np.array([[1.0, 0.001, -0.002, 0.001]], np.float32),
+            "trans": np.array([[0.3, 0.1, 0.02]], np.float32),
+            "new_traj": np.array([t in (0, 3)]),
+            "camera_f": np.full((1, 2), hw / 2, np.float32),
+            "camera_c": np.full((1, 2), hw / 2, np.float32)}
+            for t in range(6)]
+
+    def frames(self):
+        return iter(self.items)
+
+
+def test_evaluate_streaming_on_card_matches_cpu(cuda):
+    """The CLI's streaming path on the card against the CPU: each frame's
+    depth to MODEL_TOL, and the card's metrics against the CPU's
+    accumulation of the card's own depths to EVAL_METRIC_TOL."""
+    from m4depth_tpu_torch.cli.main import predict_stream
+    from m4depth_tpu_torch.eval import evaluate_streaming
+    from m4depth_tpu_torch.metrics import (
+        MetricAccumulator,
+        clip_for_eval,
+        compute_metrics,
+    )
+    from m4depth_tpu_torch.testing import EVAL_METRIC_TOL
+
+    ds = _Frames()
+    models = {d: M4Depth(ModelConfig(**D3), device=d, seed=4)
+              for d in ("cpu", "cuda")}
+    depths = {d: [x.cpu() for _, x in predict_stream(m, ds)]
+              for d, m in models.items()}
+    acc = MetricAccumulator.zeros()
+    for fr, got, ref in zip(ds.items, depths["cuda"], depths["cpu"]):
+        torch.testing.assert_close(got, ref, **MODEL_TOL)
+        acc = acc.update(compute_metrics(*clip_for_eval(
+            torch.from_numpy(fr["depth"]), got)),
+            weight=0.0 if fr["new_traj"][0] else 1.0)
+    want = {k: float(v) for k, v in acc.result().items()}
+    got = evaluate_streaming(models["cuda"], ds)
+    for k in want:
+        np.testing.assert_allclose(got[k], want[k], err_msg=k,
+                                   **EVAL_METRIC_TOL)
+
+
+def test_augment_device_on_card_matches_cpu(cuda):
+    """The same (seed, step) draws the same parameters on any device (the
+    generators are on the CPU); the transforms agree to rtol 1e-5."""
+    from m4depth_tpu_torch.data.augment_device import make_batch_augment
+
+    rng = np.random.RandomState(8)
+    b, T, hw = 3, 4, 48
+    batch = {
+        "rgb": rng.rand(b, T, hw, hw, 3).astype(np.float32),
+        "depth": (1 + 60 * rng.rand(b, T, hw, hw, 1)).astype(np.float32),
+        "rot": np.tile(np.array([0.9, 0.1, -0.2, 0.05], np.float32),
+                       (b, T, 1)),
+        "trans": np.tile(np.array([0.1, -0.05, 0.4], np.float32), (b, T, 1)),
+        "camera_f": np.full((b, 2), hw / 2, np.float32),
+        "camera_c": np.full((b, 2), hw / 2, np.float32)}
+    for usecase, crop_to in (("train", None), ("finetune", (32, 48))):
+        fn = make_batch_augment(dataset="midair", usecase=usecase,
+                                crop_to=crop_to)
+        for step in range(3):
+            out = {d: fn({k: torch.from_numpy(v).to(d)
+                          for k, v in batch.items()}, 42, step)
+                   for d in ("cpu", cuda)}
+            for k, v in out["cpu"].items():
+                torch.testing.assert_close(out[cuda][k].cpu(), v, rtol=1e-5,
+                                           atol=1e-6, msg=lambda m: f"{k}: {m}")
