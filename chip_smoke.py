@@ -13,10 +13,12 @@ exits non-zero and prints no result line:
    versions, the kernels' build time and ``ptxas`` resource use;
 2. each forward kernel against its plain PyTorch version on the card, at
    the six decoder-level shapes of the d6 model at 384x384 (b=1), in
-   float32 and in bfloat16;
+   float32 and in bfloat16; and the V1 model's SNCV (a 9x9 cross-
+   correlation of one cut, c1 != c2) at the same six shapes, b=1 and b=3;
 3. each backward kernel against autograd of the plain forward, at the six
    level shapes with b=3 (the training batch), float32 and bfloat16, for
-   every input gradient;
+   every input gradient; and V1's SNCV backward (two gradients) at b=1
+   and b=3;
 4. the d6 model at 128x128 (b=2, 3 frames, one per-element reset) on the
    card (kernels) against the same weights on the CPU (plain versions),
    in float32, on the card once with cuDNN and once without it;
@@ -37,11 +39,12 @@ exits non-zero and prints no result line:
    profiler window over training steps;
 9. each forward kernel's device time at each level shape (b=1, serving),
    beside its plain version's time and its bound, and the DSCV forward's
-   time on the inputs one serving frame gave it;
+   time on the inputs one serving frame gave it; then V1's SNCV forward;
 10. each kernel's device time at each level shape with b=3 (training),
    beside its plain version's time and its bound; each backward kernel
    both as called directly and through autograd of its fused wrapper, as
-   the model calls it (the SNCV with c1 is c2);
+   the model calls it (the SNCV with c1 is c2); then V1's SNCV, forward
+   and backward;
 11. the command line, ``m4depth_tpu_torch.cli.main.main(argv)`` in this
    process, on a synthetic Mid-Air record store written with the port's
    ``make_sequence`` and ``RecordStoreWriter`` (4 trajectories of 32
@@ -50,11 +53,24 @@ exits non-zero and prints no result line:
    ``--augment_device``, validation (ledger and validation-perfs.txt),
    eval (perfs-midair.txt, the forward kernels' launches), the CLI's
    streaming depth against ``M4Depth.step`` on one trajectory (bitwise),
-   predict; then the record-store loader alone. It prints, each beside the
-   card's name and power limit, the train mode's ms/step beside phase 8's
-   (no loading), the loader's batches/s, the eval mode's ms/frame and the
-   peak device memory above the phase's baseline;
-12. one JSON line listing the four kernels, then the result line
+   predict; then the record-store loader alone; then
+   ``m4depth_tpu_torch.cli.finetune_kitti`` on a synthetic 256x768 KITTI
+   store with sparse depth and a 768x768 Mid-Air store, ``--model=
+   m4depth-v1`` in train and eval mode, and train mode with ``--remat`` at
+   T=8. It prints, each beside the card's name and power limit, the train
+   mode's ms/step beside phase 8's (no loading), the loader's batches/s,
+   the eval mode's ms/frame and the peak device memory above the phase's
+   baseline;
+12. the V1 model: d6 at 128x128 on the card against the CPU (as phase 4),
+   streaming ``M4DepthV1.step`` at 384x384 b=1 bf16 (as phase 6: 6 SNCV
+   forwards a frame, no DSCV) and its training step at b=3 T=4 (as phase
+   8: 24 SNCV forwards and backwards a step, no DSCV); then the training
+   step at T=8 without and with remat (``remat_policy`` "all", then
+   "dscv"): ms/step and peak memory;
+13. the geometry gates: ``m4depth_tpu_torch.tools.synthetic_validation
+   --mode overfit`` with M4Depth (1000 steps) and with V1 (1200 steps),
+   each of which must print ``GEOMETRY VALIDATION PASSED``;
+14. one JSON line listing the four kernels, then the result line
    ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device it exits with code 2 before running anything.
@@ -80,7 +96,13 @@ import numpy as np
 
 from m4depth_tpu_torch.config import ModelConfig, TrainConfig
 from m4depth_tpu_torch.geometry import Camera, scale_camera
-from m4depth_tpu_torch.models import M4Depth, decoder, init_state, level_shape
+from m4depth_tpu_torch.models import (
+    M4Depth,
+    M4DepthV1,
+    decoder,
+    init_state,
+    level_shape,
+)
 from m4depth_tpu_torch.ops import (
     KERNELS,
     _build,
@@ -141,7 +163,13 @@ ZERO_LEAF = 1e-6
 
 SPATIAL_SEARCH = 3    # SNCV 7x7 window
 DEPTH_SEARCH = 4      # DSCV 9 hypotheses
+V1_SEARCH = 4         # V1's SNCV: a 9x9 cross-correlation of one cut
 LEAKY = 0.1
+
+# the training step's window with and without remat
+REMAT_T = 8
+# the geometry gates: steps of each family's overfit run (VALIDATION.md)
+GATE_STEPS = {"m4depth": 1000, "m4depth-v1": 1200}
 
 
 def log(*parts) -> None:
@@ -195,15 +223,17 @@ def phase_environment() -> None:
 # -- level shapes and inputs --------------------------------------------------
 
 
-def level_specs(cfg: ModelConfig, b: int = 1):
+def level_specs(cfg: ModelConfig, b: int = 1, v1: bool = False):
     """(level, h, w, C, cuts, camera) for each decoder level of the d6
-    model at SIZE x SIZE and batch b, finest first."""
+    model at SIZE x SIZE and batch b, finest first; V1's SNCV takes one
+    cut."""
     f = torch.full((b, 2), FOCAL)
     cam = Camera(f, f.clone())
     specs = []
     for idx in range(cfg.num_levels):
         h, w = level_shape(SIZE, SIZE, idx)
-        specs.append((idx + 1, h, w, cfg.channels[idx], cfg.num_cuts(idx + 1),
+        specs.append((idx + 1, h, w, cfg.channels[idx],
+                      1 if v1 else cfg.num_cuts(idx + 1),
                       scale_camera(cam, 2.0 ** (idx + 1))))
     return specs
 
@@ -216,7 +246,7 @@ def unit_cuts(g: torch.Generator, shape, cuts: int) -> torch.Tensor:
     return x.reshape(shape)
 
 
-def op_inputs(spec, dev, seed: int):
+def op_inputs(spec, dev, seed: int, sncv_radius: int = SPATIAL_SEARCH):
     """Inputs of one level's SNCV and DSCV, made on the CPU from a seed,
     with the upstream gradients of both ops' outputs."""
     _, h, w, C, cuts, cam = spec
@@ -232,7 +262,8 @@ def op_inputs(spec, dev, seed: int):
     out = dict(c1=c1, c2=c2, para=para, centre=centre,
                rot=torch.tensor([ROT] * b), trans=torch.tensor([TRANS] * b),
                f=cam.f, c=cam.c,
-               g_sncv=torch.randn(b, h, w, 49 * cuts, generator=g),
+               g_sncv=torch.randn(b, h, w, (2 * sncv_radius + 1) ** 2 * cuts,
+                                  generator=g),
                g_cv=torch.randn(b, h, w, 9 * cuts, generator=g),
                g_para=torch.randn(b, h, w, 1, generator=g))
     return {k: v.to(dev).contiguous() for k, v in out.items()}
@@ -290,6 +321,25 @@ def phase_kernels_vs_plain(cfg: ModelConfig, dev) -> dict:
                 f"(c1 != c2); dscv cv, parallax max|err| "
                 f"{d_errs[0][0]:.3e}, {d_errs[0][1]:.3e} (quaternion), "
                 f"{d_errs[1][0]:.3e}, {d_errs[1][1]:.3e} (small angle)")
+    # V1: radius 4, one cut, the current features against the warped ones
+    for b in (1, TRAIN_B):
+        for spec in level_specs(cfg, b, v1=True):
+            level, h, w, C = spec[:4]
+            x = op_inputs(spec, dev, seed=level, sncv_radius=V1_SEARCH)
+            errs = []
+            for dtype in (torch.float32, torch.bfloat16):
+                c1, c2 = x["c1"].to(dtype), x["c2"].to(dtype)
+                out = spatial_cost_volume_fused(c1, c2, V1_SEARCH, 1, dtype,
+                                                LEAKY)
+                ref = spatial_cost_volume(c1, c2, V1_SEARCH, 1, dtype, LEAKY)
+                torch.cuda.synchronize()
+                check(out.shape == (b, h, w, 81), f"v1 sncv {out.shape}")
+                torch.testing.assert_close(out, ref, **SNCV_TOL)
+                errs.append(max_abs_err(out, ref))
+            worst["sncv_forward"] = max(worst["sncv_forward"], *errs)
+            log(f"  V1 level {level} b={b} {h}x{w} C={C} r={V1_SEARCH} "
+                f"cuts=1 c1 != c2: sncv max|err| {errs[0]:.3e} (float32), "
+                f"{errs[1]:.3e} (bfloat16)")
     return worst
 
 
@@ -347,6 +397,27 @@ def phase_backward_vs_plain(cfg: ModelConfig, dev) -> dict:
                     "tie pixels left out of dcentre)")
             log(f"  level {level} {h}x{w} C={C} cuts={cuts} {name}, "
                 f"max|kernel - plain| of dc1[, dc2][, dpara, dcentre]: "
+                + "; ".join(line))
+    for b in (1, TRAIN_B):
+        for spec in level_specs(cfg, b, v1=True):
+            level, h, w, C = spec[:4]
+            x = op_inputs(spec, dev, seed=200 + level, sncv_radius=V1_SEARCH)
+            line = []
+            for dtype in (torch.float32, torch.bfloat16):
+                grads = []
+                for fn in (spatial_cost_volume_fused, spatial_cost_volume):
+                    ins = [x["c1"].to(dtype).requires_grad_(),
+                           x["c2"].to(dtype).requires_grad_()]
+                    out = fn(*ins, V1_SEARCH, 1, dtype, LEAKY)
+                    grads.append(torch.autograd.grad(out, ins, x["g_sncv"]))
+                torch.cuda.synchronize()
+                errs = assert_sncv_grads_close(*grads, dtype, False,
+                                               f"v1 sncv {dtype}")
+                worst["sncv_backward"] = max(worst["sncv_backward"], *errs)
+                line.append(f"{str(dtype)[6:]} " + ", ".join(
+                    f"{e:.3e}" for e in errs))
+            log(f"  V1 level {level} b={b} {h}x{w} C={C} r={V1_SEARCH} "
+                f"cuts=1, max|kernel - plain| of dc1, dc2: "
                 + "; ".join(line))
     return worst
 
@@ -563,16 +634,21 @@ def zero_launch_counts() -> None:
         kern.launches = 0
 
 
-def phase_main_path(dev):
-    """Streaming d6 384x384 bf16. The launch counts are zeroed just before
-    the first frame and read just after the last one."""
+def phase_main_path(dev, family=M4Depth, per_frame=None):
+    """Streaming d6 384x384 bf16 of ``family``, whose frame launches
+    ``per_frame`` of each kernel (default: M4Depth's, each forward kernel
+    once a level). The launch counts are zeroed just before the first frame
+    and read just after the last one."""
     # what earlier phases left allocated (the cuBLAS workspace of phase 4's
     # cuDNN-off convs, say) counts in the peak; the path's own memory
     # (weights, inputs, state, activations) is the peak above it
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     cfg = ModelConfig(compute_dtype="bfloat16")
-    model = M4Depth(cfg, device=dev, seed=0)
+    if per_frame is None:
+        per_frame = {k: cfg.num_levels if k in FORWARD else 0
+                     for k in KERNELS}
+    model = family(cfg, device=dev, seed=0)
     x = main_path_inputs(dev)
     go = torch.zeros(1, dtype=torch.bool, device=dev)
     reset = torch.ones(1, dtype=torch.bool, device=dev)
@@ -603,7 +679,7 @@ def phase_main_path(dev):
     check(depth.shape == (1, SIZE, SIZE, 1), f"depth shape {depth.shape}")
     check(bool(torch.isfinite(depth).all()), "finite depth on the main path")
     for k, n in launches.items():
-        want = cfg.num_levels * n_frames if k in FORWARD else 0
+        want = per_frame[k] * n_frames
         check(n == want, f"{k}: {n} launches in {n_frames} frames, "
               f"expected {want}")
     med = statistics.median(block_ms)
@@ -622,7 +698,8 @@ def phase_main_path(dev):
     def run_frame():
         state_box[0], _ = frame(state_box[0], go)
 
-    return dict(run=run_frame, launches=launches, n_frames=n_frames)
+    return dict(run=run_frame, launches=launches, n_frames=n_frames,
+                ms_per_frame=med, peak_above_base=peak - base)
 
 
 # -- phase 7 ----------------------------------------------------------------
@@ -676,18 +753,23 @@ def phase_profile(run, n: int, unit: str) -> None:
 # -- phase 8 ----------------------------------------------------------------
 
 
-def phase_train_path(dev):
-    """The training path: ``make_train_step`` of the d6 model at 384x384,
-    b=3, T=4, bf16/bf16, Adam at 1e-4, on a seeded batch with bench's
-    motion. The launch counts are zeroed just before the first step and
-    read just after the last one."""
+def phase_train_path(dev, family=M4Depth, T: int = TRAIN_T,
+                     per_step=None, **cfg_kw):
+    """The training path: ``make_train_step`` of the d6 ``family`` at
+    384x384, b=3, T frames, bf16/bf16 (``cfg_kw`` adds model settings),
+    Adam at 1e-4, on a seeded batch with bench's motion; each step must
+    launch ``per_step`` of each kernel (default: M4Depth's, each kernel
+    once a level of each frame after the first). The launch counts are
+    zeroed just before the first step and read just after the last one."""
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
-    cfg = ModelConfig(compute_dtype="bfloat16", cv_dtype="bfloat16")
-    model = M4Depth(cfg, device=dev, seed=0)
+    cfg = ModelConfig(compute_dtype="bfloat16", cv_dtype="bfloat16", **cfg_kw)
+    if per_step is None:
+        per_step = dict.fromkeys(KERNELS, (T - 1) * cfg.num_levels)
+    model = family(cfg, device=dev, seed=0)
     step = make_train_step(model, make_optimizer(
         model, TrainConfig(learning_rate=LEARNING_RATE)))
-    batch = train_batch(TRAIN_B, TRAIN_T, SIZE, 0, ROT, TRANS, dev)
+    batch = train_batch(TRAIN_B, T, SIZE, 0, ROT, TRANS, dev)
     check(float(batch["camera_f"][0, 0]) == FOCAL, "f = c = 192")
 
     torch.cuda.synchronize()
@@ -706,10 +788,9 @@ def phase_train_path(dev):
     peak = torch.cuda.max_memory_allocated()
 
     n_steps = len(outs)
-    per_step = (TRAIN_T - 1) * cfg.num_levels
     for k, n in launches.items():
-        check(n == per_step * n_steps, f"{k}: {n} launches in {n_steps} "
-              f"steps, expected {per_step} per step")
+        check(n == per_step[k] * n_steps, f"{k}: {n} launches in {n_steps} "
+              f"steps, expected {per_step[k]} per step")
     scalars = [{k: v.item() for k, v in o.items()} for o in outs]
     check(all(np.isfinite(v) for sc in scalars for v in sc.values()),
           "finite loss, RMSE_log and grad_norm at every step")
@@ -729,7 +810,122 @@ def phase_train_path(dev):
         f"{sc['grad_norm']:.5g}" for sc in scalars))
     log(f"  RMSE_log of the last step {scalars[-1]['RMSE_log']:.6f}")
     return dict(run=lambda: step(batch), launches=launches, n_steps=n_steps,
-                per_step=per_step, ms_per_step=med)
+                per_step=per_step, ms_per_step=med,
+                peak_above_base=peak - base)
+
+
+# -- phase 12 ---------------------------------------------------------------
+
+
+def phase_v1_card_vs_cpu(dev) -> None:
+    """The V1 model, d6 at 128x128, b=2, 3 frames, element 0 reset at frame
+    2 (as phase 4): depth from the card (the SNCV kernel at radius 4)
+    against the CPU (its plain version), same weights, float32."""
+    cfg = ModelConfig(compute_dtype="float32", cv_dtype="float32")
+    b, hw = 2, 128
+    g = torch.Generator().manual_seed(12)
+    frames = [torch.rand(b, hw, hw, 3, generator=g) for _ in range(3)]
+    rot = torch.tensor([[1.0, 0.001, -0.002, 0.001]] * b)
+    trans = torch.tensor([[0.3, 0.1, 0.02]] * b)
+    f = torch.full((b, 2), hw / 2.0)
+    models = {d: M4DepthV1(cfg, device=d, seed=2) for d in ("cpu", dev)}
+    states = {d: init_state(cfg, b, hw, hw, device=d) for d in models}
+    before = launch_counts()
+    for t in range(3):
+        new_traj = torch.tensor([t in (0, 2), t == 0])
+        depth = {}
+        for d, model in models.items():
+            states[d], depth[d] = model.step(
+                states[d], frames[t].to(d), rot.to(d), trans.to(d),
+                Camera(f.to(d), f.to(d)), new_traj.to(d))
+        card = depth[dev].cpu()
+        check(card.shape == (b, hw, hw, 1)
+              and bool(torch.isfinite(card).all()), "V1 card depth")
+        torch.testing.assert_close(card, depth["cpu"], **MODEL_TOL)
+        log(f"  frame {t}: max|depth card - cpu| "
+            f"{max_abs_err(card, depth['cpu']):.3e} (depth "
+            f"{depth['cpu'].min().item():.4g}.."
+            f"{depth['cpu'].max().item():.4g})")
+    for k, n in launch_counts().items():
+        n -= before[k]
+        want = 3 * cfg.num_levels if k == "sncv_forward" else 0
+        check(n == want, f"V1 {k}: {n} launches in 3 frames on the card, "
+              f"expected {want}")
+
+
+def v1_launches(per_level: int) -> dict:
+    """V1 launches the SNCV forward and backward ``per_level`` times a
+    level, and no DSCV."""
+    return {k: 6 * per_level if k.startswith("sncv") else 0
+            for k in KERNELS}
+
+
+def phase_remat(dev) -> dict:
+    """The training step at T=REMAT_T (b=3, d6 384x384 bf16) without remat,
+    with ``remat_policy`` "all" (each decoder level runs its forward again
+    in the backward: each forward kernel launches twice a level) and
+    "dscv" (the DSCV alone again)."""
+    fwd2 = (REMAT_T - 1) * 6
+    runs = {}
+    for name, kw, per_step in (
+            ("none", {}, None),
+            ("all", dict(remat=True, remat_policy="all"),
+             {k: fwd2 * (2 if k in FORWARD else 1) for k in KERNELS}),
+            ("dscv", dict(remat=True, remat_policy="dscv"),
+             {k: fwd2 * (2 if k == "dscv_forward" else 1) for k in KERNELS})):
+        log(f"  remat {name}:")
+        runs[name] = phase_train_path(dev, T=REMAT_T, per_step=per_step, **kw)
+        del runs[name]["run"]                 # frees the model and batch
+        torch.cuda.empty_cache()
+    return runs
+
+
+# -- phase 13 ---------------------------------------------------------------
+
+
+def phase_gates() -> dict:
+    """Each family's geometry gate, ``m4depth_tpu_torch.tools.
+    synthetic_validation --mode overfit`` in this process on the card;
+    raises unless it passes. Returns AbsRel, Delta1, the wall time and the
+    kernels' launches of each."""
+    from m4depth_tpu_torch.tools import synthetic_validation
+
+    card = gpu_name_and_power_limit()
+    out = {}
+    for model, steps in GATE_STEPS.items():
+        argv = ["--mode", "overfit", "--model", model, "--steps", str(steps)]
+        text = io.StringIO()
+        zero_launch_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(text):
+            rc = synthetic_validation.main(argv)
+        wall = time.perf_counter() - t0
+        launches = launch_counts()
+        for line in text.getvalue().splitlines():
+            log(f"    | {line}")
+        metrics = parsed(r"AbsRel': ([0-9.e-]+)", text.getvalue(), "AbsRel"
+                         ), parsed(r"Delta1': ([0-9.e-]+)", text.getvalue(),
+                                   "Delta1")
+        check(rc == 0 and "GEOMETRY VALIDATION PASSED" in text.getvalue(),
+              f"the {model} geometry gate: AbsRel {metrics[0]}, Delta1 "
+              f"{metrics[1]}")
+        # d4, T=2: M4Depth's cost volumes run on frame 1 of each window, V1's
+        # on both frames; the evaluation adds one window's forwards
+        frames = 2 if model == "m4depth-v1" else 1
+        for k, n in launches.items():
+            if model == "m4depth-v1" and k.startswith("dscv"):
+                want = 0
+            else:
+                want = 4 * frames * (steps + (k in FORWARD))
+            check(n == want, f"{model} gate: {k} {n} launches, expected "
+                  f"{want}")
+        log(f"  [{card}] {model} geometry gate (d4 64x64 bf16, b=4, T=2, "
+            f"{steps} steps): AbsRel {metrics[0]}, Delta1 {metrics[1]}, "
+            f"{wall:.1f} s wall including the evaluation; launches "
+            + ", ".join(f"{k} {n}" for k, n in launches.items()))
+        out[model] = dict(abs_rel=metrics[0], delta1=metrics[1], wall_s=wall,
+                          launches=launches)
+    return out
 
 
 # -- phase 11 ---------------------------------------------------------------
@@ -742,6 +938,15 @@ CLI_TRAIN_STEPS, CLI_RESUME_STEPS, CLI_AUGMENT_STEPS = 10, 15, 5
 CLI_VALIDATION_WINDOWS = 8
 CHILD_TIMEOUT_S = 300
 CLI_LOG_EVERY = 5
+# one epoch each of V1's train mode and of --remat at T=REMAT_T (the store's
+# 16 windows of 8 frames make 5 batches of 3)
+CLI_V1_STEPS = CLI_REMAT_STEPS = 5
+# the finetune's stores: KITTI-shaped trajectories at 256x768 with sparse
+# depth, Mid-Air at the crop's 768x768 intermediate; one epoch of the joint
+# sampler is twice KITTI's 3 batches
+KITTI_HW, KITTI_TRAJ, KITTI_FRAMES = (256, 768), 3, 12
+MIDAIR_FT_FRAMES = 24
+FINETUNE_STEPS = 6
 
 
 def write_synthetic_store(root: str) -> str:
@@ -772,14 +977,40 @@ def write_synthetic_store(root: str) -> str:
     return location
 
 
-def run_cli(argv) -> str:
-    """``m4depth_tpu_torch.cli.main.main(argv)`` in this process; raises
-    unless it returns 0. Returns what it printed (also echoed, indented)."""
+def write_finetune_stores(root: str) -> None:
+    """Record stores ``root/kitti-raw`` (KITTI-shaped, depth kept at one
+    pixel in five, as velodyne depth) and ``root/midair`` (at the square
+    intermediate of the Mid-Air crop to KITTI's size)."""
+    from m4depth_tpu_torch.data.records import RecordStoreWriter
+    from m4depth_tpu_torch.data.synthetic import make_sequence
+
+    for name, n, frames, (h, w), sparse in (
+            ("kitti-raw", KITTI_TRAJ, KITTI_FRAMES, KITTI_HW, True),
+            ("midair", 1, MIDAIR_FT_FRAMES, (KITTI_HW[1],) * 2, False)):
+        writer = RecordStoreWriter(os.path.join(root, name), num_shards=2)
+        for t in range(n):
+            rng = np.random.RandomState(500 + t)
+            seq = make_sequence(rng, frames, h, w)
+            depth = seq["depth"]
+            if sparse:
+                depth = depth * (rng.rand(*depth.shape) < 0.2)
+            writer.write_trajectory([dict(
+                RGB_im=seq["RGB_im"][i], depth=depth[i], rot=seq["rot"][i],
+                trans=seq["trans"][i], camera_f=seq["camera_f"],
+                camera_c=seq["camera_c"], new_traj=np.bool_(i == 0))
+                for i in range(frames)], name=f"traj_{t:04d}")
+        writer.close()
+
+
+def run_cli(argv, entry=None) -> str:
+    """``entry(argv)`` (default ``m4depth_tpu_torch.cli.main.main``) in this
+    process; raises unless it returns 0. Returns what it printed (also
+    echoed, indented)."""
     from m4depth_tpu_torch.cli.main import main as cli_main
 
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
-        rc = cli_main(argv)
+        rc = (entry or cli_main)(argv)
     for line in out.getvalue().splitlines():
         log(f"    | {line}")
     check(rc == 0, f"CLI {argv[0]} returned {rc}")
@@ -977,6 +1208,77 @@ def phase_cli(dev, train_ms_no_loading: float) -> dict:
                     n += 1
             torch.cuda.synchronize()
             loader[name] = n / (time.perf_counter() - t0)
+
+        # 7. the V1 family: train mode, then eval mode, on the same store
+        v1 = ["--model=m4depth-v1"]
+        v1_ckpt = os.path.join(root, "v1")
+        zero_launch_counts()
+        text = run_cli(["--mode=train", f"--ckpt_dir={v1_ckpt}",
+                        f"--total_steps={CLI_V1_STEPS}"] + train_args + v1)
+        out["v1_train_launches"] = launch_counts()
+        out["v1_ms_step"] = parsed(r"step ms median ([0-9.]+)", text,
+                                   "V1 step time")
+        for k, count in out["v1_train_launches"].items():
+            want = v1_launches(TRAIN_T)[k] * CLI_V1_STEPS
+            check(count == want, f"CLI V1 train: {k} {count} launches, "
+                  f"expected {want}")
+        zero_launch_counts()
+        text = run_cli(["--mode=eval", f"--ckpt_dir={v1_ckpt}"] + common + v1)
+        out["v1_eval_launches"] = launch_counts()
+        out["v1_ms_frame"] = parsed(
+            r"evaluated \d+ frames in [0-9.]+ s \(([0-9.]+) ms/frame", text,
+            "V1 eval time")
+        for k, count in out["v1_eval_launches"].items():
+            want = 6 * n_frames if k == "sncv_forward" else 0
+            check(count == want, f"CLI V1 eval: {k} {count} launches, "
+                  f"expected {want}")
+        perfs = np.loadtxt(os.path.join(v1_ckpt, "perfs-midair.txt"))
+        check(perfs.shape == (7,) and bool(np.isfinite(perfs).all()),
+              f"V1 perfs-midair.txt {perfs}")
+
+        # 8. --remat (each decoder level again in the backward) at T=8
+        zero_launch_counts()
+        text = run_cli(["--mode=train",
+                        f"--ckpt_dir={os.path.join(root, 'remat')}",
+                        f"--total_steps={CLI_REMAT_STEPS}", "--remat",
+                        "--remat_policy=all", "--batch_size=3",
+                        f"--seq_len={REMAT_T}", f"--db_seq_len={REMAT_T}",
+                        f"--summary_interval={CLI_LOG_EVERY}"] + common)
+        check("changes nothing" not in text, "--remat is a flag of the port")
+        out["remat_launches"] = launch_counts()
+        out["remat_ms_step"] = parsed(r"step ms median ([0-9.]+)", text,
+                                      "remat step time")
+        for k, count in out["remat_launches"].items():
+            want = ((REMAT_T - 1) * 6 * (2 if k in FORWARD else 1)
+                    * CLI_REMAT_STEPS)
+            check(count == want, f"CLI --remat: {k} {count} launches, "
+                  f"expected {want}")
+
+        # 9. the KITTI finetune from two record stores
+        from m4depth_tpu_torch.cli import finetune_kitti
+
+        t0 = time.perf_counter()
+        stores = os.path.join(root, "finetune")
+        write_finetune_stores(stores)
+        log(f"  finetune stores written in {time.perf_counter() - t0:.3f} s")
+        zero_launch_counts()
+        text = run_cli([f"--record_stores={stores}",
+                        f"--ckpt_dir={os.path.join(root, 'ft')}",
+                        "--finetune_steps=0", "--arch_depth=6",
+                        "--num_workers=8", "--batch_size=3",
+                        f"--summary_interval={CLI_LOG_EVERY}"],
+                       entry=finetune_kitti.main)
+        out["finetune_launches"] = launch_counts()
+        out["finetune_ms_step"] = parsed(r"step ms median ([0-9.]+)", text,
+                                         "finetune step time")
+        for k, count in out["finetune_launches"].items():
+            check(count == (TRAIN_T - 1) * 6 * FINETUNE_STEPS,
+                  f"finetune: {k} {count} launches in {FINETUNE_STEPS} steps")
+        ft = torch.load(os.path.join(root, "ft", "train", "0.pt"),
+                        map_location="cpu", weights_only=True)
+        check(ft["count"] == FINETUNE_STEPS and all(
+            bool(torch.isfinite(v).all()) for v in ft["model"].values()),
+            f"finetune checkpoint at update {ft['count']}, finite weights")
     peak = torch.cuda.max_memory_allocated() - base
     log(f"  [{card}] train mode, d6 {SIZE}x{SIZE} b=3 T=4 bf16 from the "
         f"store (host augmentation): {ms_step:.3f} ms/step, median of the "
@@ -989,6 +1291,14 @@ def phase_cli(dev, train_ms_no_loading: float) -> dict:
         f"the card {loader['loader + copy']:.3f} batches/s")
     log(f"  [{card}] eval mode, streaming d6 {SIZE}x{SIZE} b=1 bf16, "
         f"{n_frames} frames: {ms_frame:.3f} ms/frame, loading included")
+    log(f"  [{card}] V1 train mode, d6 {SIZE}x{SIZE} b=3 T=4 bf16 from the "
+        f"store: {out['v1_ms_step']:.3f} ms/step; V1 eval mode "
+        f"{out['v1_ms_frame']:.3f} ms/frame")
+    log(f"  [{card}] train mode with --remat (all) at T={REMAT_T}: "
+        f"{out['remat_ms_step']:.3f} ms/step with loading")
+    log(f"  [{card}] finetune_kitti, d6 {KITTI_HW[0]}x{KITTI_HW[1]} b=3 T=4 "
+        f"bf16, KITTI and cropped Mid-Air stores: "
+        f"{out['finetune_ms_step']:.3f} ms/step, {FINETUNE_STEPS} steps")
     log(f"  [{card}] peak device memory above the phase's baseline: "
         f"{peak} bytes ({peak / 2 ** 30:.3f} GiB)")
     log(f"  CLI train losses logged (every {CLI_LOG_EVERY} steps; the "
@@ -1042,6 +1352,55 @@ def bound(nbytes: float, flops: float):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def sncv_cases(x, radius: int, cuts: int, C: int, n_pix: int, dtype,
+               same: bool, with_backward: bool) -> dict:
+    """The SNCV's forward (and backward) cases at one level shape, as a
+    model calls it: M4Depth with c1 is c2 (radius 3), V1 with the current
+    features against the warped ones (radius 4, one cut)."""
+    es = torch.finfo(dtype).bits // 8
+    n_off = (2 * radius + 1) ** 2
+    n_in = 1 if same else 2                # feature maps read (and written)
+    c1 = x["c1"].to(dtype)
+    c2 = c1 if same else x["c2"].to(dtype)
+    cases = {"sncv_forward": dict(
+        kernel=lambda: spatial_cost_volume_fused(c1, c2, radius, cuts, dtype,
+                                                 LEAKY),
+        plain=lambda: spatial_cost_volume(c1, c2, radius, cuts, dtype,
+                                          LEAKY),
+        plain_calls=3,
+        # the feature maps read, n_off*cuts float32 written; one
+        # multiply-add per channel per offset, one compare per output
+        nbytes=n_pix * (n_in * C * es + n_off * cuts * 4),
+        flops=n_pix * n_off * (2 * C + cuts))}
+    if not with_backward:
+        return cases
+    with torch.no_grad():
+        out = spatial_cost_volume_fused(c1, c2, radius, cuts, dtype, LEAKY)
+    ins = [c1.clone().requires_grad_()]
+    if not same:
+        ins.append(c2.clone().requires_grad_())
+    pair = (ins[0], ins[0]) if same else tuple(ins)
+    out_plain = spatial_cost_volume(*pair, radius, cuts, dtype, LEAKY)
+    out_fused = spatial_cost_volume_fused(*pair, radius, cuts, dtype, LEAKY)
+    cases["sncv_backward"] = dict(
+        kernel=lambda: _sncv_backward(x["g_sncv"], c1, c2, out, radius, cuts,
+                                      LEAKY),
+        # as the model runs it: autograd through the fused wrapper (with
+        # c1 is c2, an add of two gradients counts where one is made)
+        autograd=lambda: torch.autograd.grad(out_fused, ins, x["g_sncv"],
+                                             retain_graph=True),
+        plain=lambda: torch.autograd.grad(out_plain, ins, x["g_sncv"],
+                                          retain_graph=True),
+        plain_calls=1,
+        # g and the forward's output (n_off*cuts float32 each) and the
+        # feature maps read, their gradients (one when c1 is c2) written;
+        # per offset and channel two multiply-adds, per output gradient a
+        # select and a scale
+        nbytes=n_pix * (2 * n_off * cuts * 4 + 2 * n_in * C * es),
+        flops=n_pix * n_off * (4 * C + 2 * cuts))
+    return cases
+
+
 def kernel_cases(x, cuts: int, C: int, n_pix: int, dtype, with_backward):
     """For each kernel at one level shape: the kernel's call, its plain
     version's call, and the bytes and flops the function needs. As the
@@ -1050,17 +1409,9 @@ def kernel_cases(x, cuts: int, C: int, n_pix: int, dtype, with_backward):
     es = torch.finfo(dtype).bits // 8
     c1 = x["c1"].to(dtype)
     args = dscv_args(x, dtype)
-    cases = {
-        "sncv_forward": dict(
-            kernel=lambda: spatial_cost_volume_fused(
-                c1, c1, SPATIAL_SEARCH, cuts, dtype, LEAKY),
-            plain=lambda: spatial_cost_volume(
-                c1, c1, SPATIAL_SEARCH, cuts, dtype, LEAKY),
-            plain_calls=3,
-            # one feature map read, 49*cuts float32 written; one
-            # multiply-add per channel per offset, one compare per output
-            nbytes=n_pix * (C * es + 49 * cuts * 4),
-            flops=n_pix * 49 * (2 * C + cuts)),
+    cases = sncv_cases(x, SPATIAL_SEARCH, cuts, C, n_pix, dtype, True,
+                       with_backward)
+    cases.update({
         "dscv_forward": dict(
             kernel=lambda: parallax_sweeping_cv_fused(*args, cuts, dtype),
             plain=lambda: parallax_sweeping_cv(*args, cuts, dtype),
@@ -1071,17 +1422,9 @@ def kernel_cases(x, cuts: int, C: int, n_pix: int, dtype, with_backward):
             # geometry per hypothesis and cut
             nbytes=n_pix * ((2 * C + 1) * es + 4 + (9 * cuts + 1) * 4),
             flops=n_pix * 9 * (8 * C + 40 * cuts)),
-    }
+    })
     if not with_backward:
         return cases
-    with torch.no_grad():
-        out = spatial_cost_volume_fused(c1, c1, SPATIAL_SEARCH, cuts, dtype,
-                                        LEAKY)
-    c1g = c1.clone().requires_grad_()
-    out_plain = spatial_cost_volume(c1g, c1g, SPATIAL_SEARCH, cuts, dtype,
-                                    LEAKY)
-    out_fused = spatial_cost_volume_fused(c1g, c1g, SPATIAL_SEARCH, cuts,
-                                          dtype, LEAKY)
     cam = Camera(x["f"], x["c"])
     motion = (x["rot"], x["trans"], x["f"], x["c"])
     a, b, para = c1, x["c2"].to(dtype), x["para"].to(dtype)
@@ -1092,22 +1435,6 @@ def kernel_cases(x, cuts: int, C: int, n_pix: int, dtype, with_backward):
     cv_f, pw_f = parallax_sweeping_cv_fused(ins[0], ins[1], x["para"], ins[2],
                                             x["rot"], x["trans"], cam,
                                             DEPTH_SEARCH, cuts, dtype)
-    cases["sncv_backward"] = dict(
-        kernel=lambda: _sncv_backward(x["g_sncv"], c1, c1, out,
-                                      SPATIAL_SEARCH, cuts, LEAKY),
-        # as the model runs it: autograd through the fused wrapper with
-        # c1 is c2, so an add of two gradients counts where one is made
-        autograd=lambda: torch.autograd.grad(out_fused, c1g, x["g_sncv"],
-                                             retain_graph=True),
-        plain=lambda: torch.autograd.grad(out_plain, c1g, x["g_sncv"],
-                                          retain_graph=True),
-        plain_calls=1,
-        # g and the forward's output (49*cuts float32 each) and the feature
-        # map read, its one gradient (c1 is c2) written; per offset and
-        # channel two multiply-adds, per output gradient a select and a
-        # scale
-        nbytes=n_pix * (2 * 49 * cuts * 4 + 2 * C * es),
-        flops=n_pix * 49 * (4 * C + 2 * cuts))
     cases["dscv_backward"] = dict(
         kernel=lambda: _dscv_backward(a, b, para, x["centre"], *motion,
                                       x["g_cv"], x["g_para"], DEPTH_SEARCH,
@@ -1131,25 +1458,35 @@ def kernel_cases(x, cuts: int, C: int, n_pix: int, dtype, with_backward):
 
 
 def phase_kernel_times(cfg: ModelConfig, dev, b: int, with_backward: bool,
-                       calls_per_level: int, model_dscv=None) -> dict:
+                       calls_per_level: int, model_dscv=None,
+                       v1: bool = False) -> dict:
     """Each kernel's device time per call at each level shape with batch b,
     in the paths' dtype (bf16), beside its plain version's time and its
     bound; totals are per frame (b=1) or per step (b=3: each level runs
     ``calls_per_level`` times a step). The inputs are random, with sweep
     centres in [0.5, 4.5] and some far out; ``model_dscv`` (the DSCV's
     arguments from one serving frame, by level shape) adds the DSCV
-    forward's time on the inputs the model gave it."""
+    forward's time on the inputs the model gave it. ``v1``: the SNCV alone,
+    as V1 calls it (radius 4, one cut, c1 != c2)."""
     dtype = cfg.torch_cv_dtype
     names = FORWARD + (BACKWARD if with_backward else ())
+    if v1:
+        names = tuple(k for k in names if k.startswith("sncv"))
     totals = {k: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, t_bytes=0.0,
                       t_ops=0.0) for k in names}
-    for k in BACKWARD if with_backward else ():
-        totals[k]["autograd_ms"] = 0.0
+    for k in names:
+        if k in BACKWARD:
+            totals[k]["autograd_ms"] = 0.0
     levels = []
-    for spec in level_specs(cfg, b):
+    for spec in level_specs(cfg, b, v1=v1):
         level, h, w, C, cuts = spec[:5]
-        x = op_inputs(spec, dev, seed=level)
-        cases = kernel_cases(x, cuts, C, b * h * w, dtype, with_backward)
+        if v1:
+            x = op_inputs(spec, dev, seed=level, sncv_radius=V1_SEARCH)
+            cases = sncv_cases(x, V1_SEARCH, 1, C, b * h * w, dtype, False,
+                               with_backward)
+        else:
+            x = op_inputs(spec, dev, seed=level)
+            cases = kernel_cases(x, cuts, C, b * h * w, dtype, with_backward)
         row = dict(level=level, b=b, h=h, w=w, C=C, cuts=cuts)
         for name in names:
             d = cases[name]
@@ -1176,7 +1513,8 @@ def phase_kernel_times(cfg: ModelConfig, dev, b: int, with_backward: bool,
                 t["autograd_ms"] += ag_ms * calls_per_level
                 row[name]["autograd_ms"] = ag_ms
                 extra = f", through autograd {ag_ms * 1e3:.2f} us"
-            log(f"  level {level} b={b} {h}x{w} C={C} cuts={cuts} {name}: "
+            log(f"  {'V1 ' if v1 else ''}level {level} b={b} {h}x{w} C={C} "
+                f"cuts={cuts} {name}: "
                 f"kernel {ms * 1e3:.2f} us{extra}, plain {plain_ms * 1e3:.2f} "
                 f"us, bound {b_ms * 1e3:.3f} us ({b_by}; {d['nbytes']} B, "
                 f"{d['flops']} flop), {100 * b_ms / ms:.1f}% of bound")
@@ -1193,7 +1531,7 @@ def phase_kernel_times(cfg: ModelConfig, dev, b: int, with_backward: bool,
                 f"{centre.min().item():.4g}..{centre.max().item():.4g}): "
                 f"kernel {ms * 1e3:.2f} us")
         levels.append(row)
-    log(json.dumps({"kernel_levels": levels}))
+    log(json.dumps({"v1_kernel_levels" if v1 else "kernel_levels": levels}))
     unit = "frame" if calls_per_level == 1 else "step"
     for name, t in totals.items():
         extra = (f", {t['model_inputs_ms'] * 1e3:.1f} us on the model's own "
@@ -1201,7 +1539,8 @@ def phase_kernel_times(cfg: ModelConfig, dev, b: int, with_backward: bool,
         if "autograd_ms" in t:
             extra += (f", {t['autograd_ms'] * 1e3:.1f} us through autograd as "
                       "the model runs it")
-        log(f"  {name}: {t['ms'] * 1e3:.1f} us/{unit} (bound "
+        log(f"  {'V1 ' if v1 else ''}{name}: {t['ms'] * 1e3:.1f} us/{unit} "
+            f"(bound "
             f"{t['bound_ms'] * 1e3:.2f} us, {100 * t['bound_ms'] / t['ms']:.1f}"
             f"% of bound; plain {t['plain_ms'] * 1e3:.1f} us){extra}")
     return totals
@@ -1233,63 +1572,109 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     serving = ModelConfig(compute_dtype="bfloat16")
     t_start = time.perf_counter()
+    times = {}
+
+    def timed(name, fn, *args, **kw):
+        t0 = time.perf_counter()
+        result = fn(*args, **kw)
+        times[name] = time.perf_counter() - t0
+        return result
 
     log("== phase 1: environment")
-    phase_environment()
+    timed(1, phase_environment)
     log("== phase 2: forward kernels against their plain versions (d6 "
-        "384x384 level shapes, b=1)")
-    worst = phase_kernels_vs_plain(serving, dev)
+        "384x384 level shapes, b=1; V1's SNCV at b=1 and b=3)")
+    worst = timed(2, phase_kernels_vs_plain, serving, dev)
     log("== phase 3: backward kernels against autograd of the plain "
-        f"forward (d6 384x384 level shapes, b={TRAIN_B})")
-    worst.update(phase_backward_vs_plain(serving, dev))
+        f"forward (d6 384x384 level shapes, b={TRAIN_B}; V1's SNCV at b=1 "
+        f"and b={TRAIN_B})")
+    worst.update(timed(3, phase_backward_vs_plain, serving, dev))
     log("== phase 4: d6 128x128 model, card (kernels) against CPU (plain), "
         "float32")
-    phase_model_card_vs_cpu(dev)
+    timed(4, phase_model_card_vs_cpu, dev)
     log("== phase 5: one training step, d6 128x128 b=2 T=3, card against "
         "CPU, float32")
-    phase_train_card_vs_cpu(dev)
+    timed(5, phase_train_card_vs_cpu, dev)
     log("== phase 6: serving path, streaming M4Depth.step d6 384x384 b=1 "
         "bf16")
-    serve = phase_main_path(dev)
+    serve = timed(6, phase_main_path, dev)
     log("== phase 7: profile of the serving path")
-    phase_profile(serve["run"], PROFILED_FRAMES, "frame")
+    timed(7, phase_profile, serve["run"], PROFILED_FRAMES, "frame")
     log(f"== phase 8: training path, d6 384x384 b={TRAIN_B} T={TRAIN_T} "
         "bf16/bf16, Adam 1e-4")
-    train = phase_train_path(dev)
+    train = timed(8, phase_train_path, dev)
     log("   profile of the training path")
     phase_profile(train["run"], PROFILED_STEPS, "step")
     log("== phase 9: forward kernel device times per level shape, b=1 "
         "(serving), bf16, on random inputs and (DSCV) on one serving "
-        "frame's; no single PyTorch call computes either op, so "
-        "library_ms is null")
+        "frame's; then V1's SNCV (radius 4, one cut, c1 != c2); no single "
+        "PyTorch call computes either op, so library_ms is null")
     model_dscv = {}
     with captured_dscv_inputs(model_dscv):
         serve["run"]()
     check(len(model_dscv) == serving.num_levels, "one DSCV call a level")
+    t0 = time.perf_counter()
     serving_totals = phase_kernel_times(serving, dev, 1, False, 1,
                                         model_dscv)
+    v1_serving_totals = phase_kernel_times(serving, dev, 1, False, 1,
+                                           v1=True)
+    times[9] = time.perf_counter() - t0
     log(f"== phase 10: kernel device times per level shape, b={TRAIN_B} "
-        f"(training), bf16; per step each level runs {TRAIN_T - 1} times")
+        f"(training), bf16; per step each level runs {TRAIN_T - 1} times "
+        f"(V1's SNCV {TRAIN_T} times)")
+    t0 = time.perf_counter()
     totals = phase_kernel_times(serving, dev, TRAIN_B, True, TRAIN_T - 1)
+    v1_totals = phase_kernel_times(serving, dev, TRAIN_B, True, TRAIN_T,
+                                   v1=True)
+    times[10] = time.perf_counter() - t0
     log(f"== phase 11: the CLI (m4depth_tpu_torch.cli.main) on a synthetic "
         f"record store, d6 {SIZE}x{SIZE}: train, resume, --augment_device, "
-        "validation (a child process on the card), eval, predict")
-    cli = phase_cli(dev, train["ms_per_step"])
+        "validation (a child process on the card), eval, predict; V1 train "
+        f"and eval; --remat at T={REMAT_T}; finetune_kitti")
+    cli = timed(11, phase_cli, dev, train["ms_per_step"])
+    log("== phase 12: the V1 model: d6 128x128 card against CPU, float32")
+    t0 = time.perf_counter()
+    phase_v1_card_vs_cpu(dev)
+    log("   V1 serving path, streaming M4DepthV1.step d6 384x384 b=1 bf16")
+    v1_serve = phase_main_path(dev, M4DepthV1, {
+        k: 6 if k == "sncv_forward" else 0 for k in KERNELS})
+    log(f"   V1 training path, d6 384x384 b={TRAIN_B} T={TRAIN_T} bf16/bf16")
+    v1_train = phase_train_path(dev, M4DepthV1, per_step=v1_launches(TRAIN_T))
+    log(f"   the training step at T={REMAT_T}, b={TRAIN_B}, without and with "
+        "remat")
+    remat = phase_remat(dev)
+    times[12] = time.perf_counter() - t0
+    log("== phase 13: the geometry gates (synthetic_validation --mode "
+        "overfit, d4 64x64 bf16)")
+    gates = timed(13, phase_gates)
 
     kernels = []
     for key, info in KERNEL_INFO.items():
         t = totals[key]
         n_train = train["launches"][key]
         n_serve = serve["launches"][key]
+        v1t, v1s = v1_totals.get(key), v1_serving_totals.get(key)
         kernels.append(dict(
             name=key, route="cuda", **info,
             # the training path's count: it runs all four kernels
             launches=n_train, launches_per_step=n_train // train["n_steps"],
-            # phase 11: the CLI's first train run, and its eval run
+            # phase 11: the CLI's first train run, its eval run, V1's train
+            # and eval runs, the --remat run and the finetune
             cli_train_launches=cli["train_launches"][key],
             cli_eval_launches=cli["eval_launches"][key],
+            cli_v1_train_launches=cli["v1_train_launches"][key],
+            cli_v1_eval_launches=cli["v1_eval_launches"][key],
+            cli_remat_launches=cli["remat_launches"][key],
+            cli_finetune_launches=cli["finetune_launches"][key],
             serving_launches=n_serve,
             serving_launches_per_frame=n_serve // serve["n_frames"],
+            # phase 12: V1's serving and training paths
+            v1_serving_launches_per_frame=(v1_serve["launches"][key]
+                                           // v1_serve["n_frames"]),
+            v1_launches_per_step=(v1_train["launches"][key]
+                                  // v1_train["n_steps"]),
+            # phase 13: each geometry gate's run
+            gate_launches={m: g["launches"][key] for m, g in gates.items()},
             max_abs_err=worst[key],
             # per training step: the sum over the six level shapes at b=3
             # of one call each, times the 3 frames that run cost volumes
@@ -1303,9 +1688,27 @@ def main() -> int:
             # per training step, backward kernels only: the same calls made
             # through autograd of the fused wrapper, as the model makes them
             autograd_ms=t.get("autograd_ms"),
+            # V1's SNCV (radius 4, one cut, c1 != c2): per step (b=3, each
+            # level 4 times) and per serving frame (b=1)
+            v1_ms=v1t["ms"] if v1t else None,
+            v1_plain_ms=v1t["plain_ms"] if v1t else None,
+            v1_bound_ms=v1t["bound_ms"] if v1t else None,
+            v1_bound_by=(("bytes" if v1t["t_bytes"] >= v1t["t_ops"]
+                          else "operations") if v1t else None),
+            v1_autograd_ms=v1t.get("autograd_ms") if v1t else None,
+            v1_serving_ms=v1s["ms"] if v1s else None,
+            v1_serving_bound_ms=v1s["bound_ms"] if v1s else None,
             passed=True))
-        check(kernels[-1]["launches_per_step"] == train["per_step"],
+        check(kernels[-1]["launches_per_step"] == train["per_step"][key],
               f"{key} launches per step")
+    log("phase times: " + ", ".join(f"{k} {v:.1f} s" for k, v in
+                                    times.items()))
+    log(json.dumps({"remat": {k: dict(ms_per_step=v["ms_per_step"],
+                                      peak_above_base=v["peak_above_base"])
+                              for k, v in remat.items()},
+                    "gates": {m: {k: v for k, v in g.items()
+                                  if k != "launches"}
+                              for m, g in gates.items()}}))
     log(f"smoke time {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -25,19 +25,26 @@ from m4depth_tpu_torch.metrics import METRIC_NAMES
 
 
 def build_model(cmd, cfg, device):
-    from m4depth_tpu_torch.models import M4Depth
+    """M4Depth, or M4DepthV1 for ``--model=m4depth-v1`` (fed the data
+    path's quaternions), with weights from ``--seed``."""
+    from m4depth_tpu_torch.models import M4Depth, M4DepthV1
 
     if cmd.model == "m4depth-v1":
-        raise NotImplementedError(
-            "--model=m4depth-v1 is not ported yet (it waits for the V1 "
-            "slice of the port)")
+        return M4DepthV1(cfg, device=device, seed=cmd.seed)
     return M4Depth(cfg, device=device, seed=cmd.seed)
 
 
-def build_dataset(cmd, usecase: str, db_paths: dict, batch_size: int):
+def build_dataset(cmd, usecase: str, db_paths: dict, batch_size: int,
+                  records_path=None, db_seq_len="unset"):
+    """The dataset of ``cmd.dataset`` for ``usecase``: from
+    ``--record_store`` if given, else from the CSV manifests under
+    ``records_path`` (default ``--records_path``). ``db_seq_len`` overrides
+    ``--db_seq_len`` unless it is ``"unset"`` (None is a value: no
+    windows)."""
     from m4depth_tpu_torch.data import SequenceDataset, get_adapter
 
     adapter = get_adapter(cmd.dataset)
+    seq = cmd.db_seq_len if db_seq_len == "unset" else db_seq_len
     # Mid-Air finetune decodes a SQUARE intermediate and random-crops it to
     # the (KITTI) out_size with the principal point shifted; the crop runs
     # in the host augmentation or on the device (--augment_device)
@@ -56,7 +63,7 @@ def build_dataset(cmd, usecase: str, db_paths: dict, batch_size: int):
             cmd.record_store,
             adapter=adapter,
             usecase=usecase,
-            db_seq_len=cmd.db_seq_len,
+            db_seq_len=seq,
             seq_len=cmd.seq_len,
             batch_size=batch_size,
             augment=not cmd.no_augmentation,
@@ -66,9 +73,9 @@ def build_dataset(cmd, usecase: str, db_paths: dict, batch_size: int):
     return SequenceDataset(
         adapter,
         db_path=db_paths.get(cmd.dataset, ""),
-        records_path=cmd.records_path,
+        records_path=records_path or cmd.records_path,
         usecase=usecase,
-        db_seq_len=cmd.db_seq_len,
+        db_seq_len=seq,
         seq_len=cmd.seq_len,
         batch_size=batch_size,
         augment=not cmd.no_augmentation,

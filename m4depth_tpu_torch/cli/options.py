@@ -30,7 +30,7 @@ REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
 # flags of the JAX CLI that choose among its TPU formulations
 TPU_ONLY = ("dscv_impl", "dscv_row_group", "dscv_x_window", "dscv_xw_dual",
             "dscv_chunk_bytes", "dscv_bwd", "sncv_impl", "time_axis",
-            "scan_unroll", "remat_policy", "remat", "disable_xla")
+            "scan_unroll", "disable_xla")
 # flags of the JAX CLI that it accepts for the reference's scripts and reads
 # nowhere (it saves every epoch)
 UNUSED = ("save_interval", "conf_err_rate")
@@ -99,7 +99,8 @@ def build_parser(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
     g.add_argument("--no_level_memory", default=False, action="store_true")
     g.add_argument("--model", default="m4depth",
                    choices=["m4depth", "m4depth-v1"],
-                   help="Model family (m4depth-v1 is not ported yet)")
+                   help="Model family: the Sensors-2022 M4Depth, or the "
+                        "legacy V1 (arXiv 2021)")
     g.add_argument("--compute_dtype", default="bfloat16",
                    choices=["float32", "bfloat16"])
     g.add_argument("--cv_dtype", default="bfloat16",
@@ -118,7 +119,10 @@ def build_parser(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
     g.add_argument("--dscv_chunk_bytes", type=int, default=30 << 20,
                    help=argparse.SUPPRESS)
     g.add_argument("--remat_policy", default="dscv", choices=["dscv", "all"],
-                   help=argparse.SUPPRESS)
+                   help="With --remat: recompute in the backward only the "
+                        "DSCV (its autograd Function already saves only its "
+                        "inputs, so this stores about as much as no remat) "
+                        "or each whole decoder level (all)")
     g.add_argument("--dscv_bwd", default="xla",
                    choices=["xla", "corner", "pallas"],
                    help=argparse.SUPPRESS)
@@ -129,7 +133,9 @@ def build_parser(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
     g.add_argument("--scan_unroll", default=2, type=int,
                    help=argparse.SUPPRESS)
     g.add_argument("--remat", default=False, action="store_true",
-                   help=argparse.SUPPRESS)
+                   help="Recompute decoder work in the backward pass instead "
+                        "of storing it (torch.utils.checkpoint; trades device "
+                        "time for memory, for long windows)")
     g.add_argument("--grad_clip_norm", default=0.0, type=float,
                    help="Global-norm gradient clip; 0 disables")
     g.add_argument("--lr_schedule", default="constant",
@@ -206,6 +212,8 @@ def model_config_from_args(cmd, depth_type: str = "map") -> ModelConfig:
         depth_type=depth_type,
         compute_dtype=cmd.compute_dtype,
         cv_dtype=cmd.cv_dtype,
+        remat=cmd.remat,
+        remat_policy=cmd.remat_policy,
     )
 
 

@@ -4,9 +4,10 @@ The model fields of ``m4depth_tpu.config.ModelConfig``, the whole of
 ``AblationFlags``, ``TrainConfig`` without its mesh fields, and
 ``load_dataset_locations``, copied so that this package imports nothing of
 the JAX one. The JAX package's TPU layout knobs (``dscv_*``, ``sncv_impl``,
-``scan_unroll``, ``remat*``, ``time_axis``) have no counterpart: which
-implementation of a cost volume runs is decided by the device its inputs
-lie on.
+``scan_unroll``, ``time_axis``) have no counterpart: which implementation
+of a cost volume runs is decided by the device its inputs lie on.
+``remat``/``remat_policy`` are kept: they trade recomputation for memory
+on any device.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ import torch
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 DEPTH_TYPES = ("map", "velodyne")
+REMAT_POLICIES = ("dscv", "all")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,6 +51,14 @@ class ModelConfig:
     ablation: AblationFlags = dataclasses.field(default_factory=AblationFlags)
     compute_dtype: str = "float32"    # conv dtype: "float32" | "bfloat16"
     cv_dtype: str = "bfloat16"        # dtype the cost-volume inputs are rounded to
+    remat: bool = False               # recompute in the backward pass what
+                                      # remat_policy names instead of storing
+                                      # it (trades device time for memory)
+    remat_policy: str = "dscv"        # with remat: "all" checkpoints each
+                                      # decoder level call, "dscv" only the
+                                      # DSCV call (its autograd Function saves
+                                      # only its inputs, so this stores about
+                                      # what no remat stores)
 
     def __post_init__(self):
         for name in ("compute_dtype", "cv_dtype"):
@@ -58,6 +68,9 @@ class ModelConfig:
         if self.depth_type not in DEPTH_TYPES:
             raise ValueError(f"depth_type must be one of {DEPTH_TYPES}, "
                              f"got {self.depth_type!r}")
+        if self.remat and self.remat_policy not in REMAT_POLICIES:
+            raise ValueError(f"remat_policy must be 'dscv' or 'all', "
+                             f"got {self.remat_policy!r}")
 
     @property
     def channels(self) -> Tuple[int, ...]:

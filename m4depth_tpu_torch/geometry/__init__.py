@@ -8,6 +8,7 @@ from m4depth_tpu_torch.geometry.parallax import (
     parallax_sweep_flows,
     parallax_to_depth,
     prev_depth_to_parallax,
+    recompute_depth,
     reprojection_flow,
     reproject,
 )
@@ -21,7 +22,7 @@ from m4depth_tpu_torch.geometry.rotations import rot_mat
 __all__ = [
     "Camera", "EpipolarTerms", "depth_to_parallax", "epipolar_terms",
     "parallax_sweep_flows", "parallax_to_depth", "pixel_grid",
-    "prev_depth_to_parallax", "reproject", "reprojection_flow",
-    "resize_bilinear", "resize_bilinear_v1",
+    "prev_depth_to_parallax", "recompute_depth", "reproject",
+    "reprojection_flow", "resize_bilinear", "resize_bilinear_v1",
     "resize_nearest", "rot_mat", "scale_camera",
 ]

@@ -153,3 +153,18 @@ def reproject(fmap: torch.Tensor, depth: torch.Tensor, rot: torch.Tensor,
 
     flow = reprojection_flow(depth, rot, trans, camera)
     return dense_image_warp(fmap, flow), flow
+
+
+def recompute_depth(depth: torch.Tensor, rot: torch.Tensor,
+                    trans: torch.Tensor, camera: Camera) -> torch.Tensor:
+    """Depth perceived from the new viewpoint for points at the same pixels
+    (counterpart of the JAX ``recompute_depth``): the new z is
+    ``(R_3 . ray) * depth - R_3 . t`` with the geometry factors detached,
+    clipped to [0.1, 2000]. ``R_3`` is the last row of ``rot_mat(rot)``."""
+    b, h, w = depth.shape[:3]
+    coords, _ = pixel_grid(h, w, camera)
+    r3 = rot_mat(rot)[:, 2, :].reshape(b, 1, 1, 3)
+    scale = torch.sum(r3 * coords, dim=-1, keepdim=True)
+    shift = torch.sum(r3 * (-trans).reshape(b, 1, 1, 3), dim=-1, keepdim=True)
+    new_depth = scale.detach() * depth + shift.detach()
+    return torch.clamp(new_depth, 0.1, 2000.0)

@@ -1,12 +1,13 @@
 """Convert the JAX package's parameter tree into this package's weights.
 
 Takes the tree under ``"params"`` that ``m4depth_tpu``'s ``M4Depth.init``
-returns, as a nested dict of numpy arrays (``jax.device_get`` makes one);
-imports no JAX. Names map as follows:
+or ``M4DepthV1.init`` returns, as a nested dict of numpy arrays
+(``jax.device_get`` makes one); imports no JAX. Names map as follows:
 
   encoder/conv_s{1,2}_{i}/{kernel,bias}  -> encoder.conv_s{1,2}.{i}.{weight,bias}
   encoder/dinl/{scale,bias} [1,1,1,C]    -> encoder.dinl.{scale,bias} [C]
   level_{i+1}/refiner/{prep,est}_{j}/... -> levels.{i}.refiner.{prep,est}.{j}...
+  level_{i+1}/conv_{j}/... (V1)          -> levels.{i}.convs.{j}...
 
 Conv kernels are HWIO there and OIHW here (``transpose(3, 2, 0, 1)``).
 ``save_jax_checkpoint`` writes such a tree as a checkpoint of this
@@ -16,13 +17,15 @@ package's CLI.
 from __future__ import annotations
 
 import os
-from typing import Dict, Mapping
+from typing import Dict, Mapping, TypeVar
 
 import numpy as np
 import torch
 
 from m4depth_tpu_torch.config import ModelConfig
 from m4depth_tpu_torch.models.m4depth import M4Depth
+
+Model = TypeVar("Model", bound=torch.nn.Module)  # M4Depth or M4DepthV1
 
 
 def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
@@ -44,8 +47,10 @@ def _jax_name(port_name: str) -> str:
         if parts[1] == "dinl":
             return f"encoder/dinl/{leaf}"
         return f"encoder/{parts[1]}_{parts[2]}/{leaf}"
-    if parts[0] == "levels":
+    if parts[0] == "levels" and parts[2] == "refiner":
         return f"level_{int(parts[1]) + 1}/refiner/{parts[3]}_{parts[4]}/{leaf}"
+    if parts[0] == "levels" and parts[2] == "convs":
+        return f"level_{int(parts[1]) + 1}/conv_{parts[3]}/{leaf}"
     raise KeyError(f"no JAX counterpart for {port_name}")
 
 
@@ -55,7 +60,7 @@ def _convert(port_name: str, value: np.ndarray) -> np.ndarray:
     return value.reshape(-1)
 
 
-def state_dict_from_jax(params: Mapping, model: M4Depth
+def state_dict_from_jax(params: Mapping, model: torch.nn.Module
                         ) -> Dict[str, torch.Tensor]:
     """The ``state_dict`` of ``model`` filled from the JAX tree ``params``,
     on the model's device.
@@ -84,7 +89,7 @@ def state_dict_from_jax(params: Mapping, model: M4Depth
     return out
 
 
-def load_jax_params(model: M4Depth, params: Mapping) -> M4Depth:
+def load_jax_params(model: Model, params: Mapping) -> Model:
     """Load the JAX tree ``params`` into ``model`` (in place) and return it."""
     model.load_state_dict(state_dict_from_jax(params, model), strict=True)
     return model

@@ -14,9 +14,17 @@ from m4depth_tpu_torch.models.m4depth import (
     init_state,
     level_shape,
 )
+from m4depth_tpu_torch.models.m4depth_v1 import (
+    DecoderLevelV1,
+    EncoderV1,
+    M4DepthV1,
+    inverse_leaky_relu,
+    m4depth_v1_loss,
+)
 
 __all__ = [
-    "DecoderLevel", "DispRefiner", "DomainNorm", "Encoder", "LevelEstimate",
-    "LevelState", "M4Depth", "ModelState", "init_state", "leaky_relu",
-    "level_shape", "prep_features",
+    "DecoderLevel", "DecoderLevelV1", "DispRefiner", "DomainNorm", "Encoder",
+    "EncoderV1", "LevelEstimate", "LevelState", "M4Depth", "M4DepthV1",
+    "ModelState", "init_state", "inverse_leaky_relu", "leaky_relu",
+    "level_shape", "m4depth_v1_loss", "prep_features",
 ]

@@ -13,6 +13,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn as nn
+from torch.utils.checkpoint import checkpoint
 
 from m4depth_tpu_torch.config import ModelConfig
 from m4depth_tpu_torch.geometry import (
@@ -178,9 +179,15 @@ class DecoderLevel(nn.Module):
         curr_p = prep_features(curr_f, cuts, abl.normalize_features)
         prev_p = prep_features(state.f_maps, cuts, abl.normalize_features)
         para_prev_t = prev_depth_to_parallax(state.depth, rot, trans, camera)
-        cv, para_reproj = parallax_sweeping_cv_fused(
-            curr_p, prev_p, para_prev_t, prev_l.parallax, rot, trans, camera,
-            cfg.search_range, cuts, cfg.torch_cv_dtype)
+        dscv_args = (curr_p, prev_p, para_prev_t, prev_l.parallax, rot, trans,
+                     camera, cfg.search_range, cuts, cfg.torch_cv_dtype)
+        if cfg.remat and cfg.remat_policy == "dscv" and torch.is_grad_enabled():
+            # the counterpart of the JAX package's jax.checkpoint of the DSCV
+            # call: the backward runs the DSCV forward again
+            cv, para_reproj = checkpoint(parallax_sweeping_cv_fused,
+                                         *dscv_args, use_reentrant=False)
+        else:
+            cv, para_reproj = parallax_sweeping_cv_fused(*dscv_args)
 
         def log_safe(x):
             return torch.log(torch.clamp(x, min=1e-12))

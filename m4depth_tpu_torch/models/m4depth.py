@@ -10,6 +10,7 @@ from typing import List, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn as nn
+from torch.utils.checkpoint import checkpoint
 
 from m4depth_tpu_torch import resolve_device
 from m4depth_tpu_torch.config import ModelConfig
@@ -95,11 +96,20 @@ class M4Depth(nn.Module):
         new_states: List[Optional[LevelState]] = [None] * num_levels
         ests: List[Optional[LevelEstimate]] = [None] * num_levels
         deeper: Optional[LevelEstimate] = None
+        # remat_policy "all", the counterpart of the JAX package's
+        # nn.remat(DecoderLevel): each level's body runs again in the
+        # backward, and only its inputs are stored
+        remat = (self.cfg.remat and self.cfg.remat_policy == "all"
+                 and torch.is_grad_enabled())
         for idx in reversed(range(num_levels)):
             cam_l = scale_camera(camera, 2.0 ** (idx + 1))
-            deeper, new_states[idx] = self.levels[idx](
-                f_pyr[idx], deeper, None if first else state[idx], rot,
-                trans, cam_l, new_traj)
+            args = (f_pyr[idx], deeper, None if first else state[idx], rot,
+                    trans, cam_l, new_traj)
+            if remat:
+                deeper, new_states[idx] = checkpoint(
+                    self.levels[idx], *args, use_reentrant=False)
+            else:
+                deeper, new_states[idx] = self.levels[idx](*args)
             ests[idx] = deeper
         return tuple(new_states), ests
 

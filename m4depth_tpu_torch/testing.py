@@ -18,7 +18,9 @@ from m4depth_tpu_torch.geometry import Camera, parallax_sweep_flows
 # Forward kernels against their plain versions. Both sides round their
 # inputs to the same dtype and multiply and add in float32.
 #   SNCV: the same products summed in another order (and with FMA): float32
-#     rounding of sums of at most 24 terms of size <= 1.
+#     rounding of a cut's mean of at most 192 terms (V1's one cut at level
+#     6; M4Depth's cuts have at most 24) whose absolute values sum to at
+#     most 1 for unit cuts.
 #   DSCV: the kernel computes each sample position inline, the plain version
 #     through tensor ops; positions differ by a few float32 ulps of a pixel
 #     coordinate (< 1.2e-4 px below 512). Bilinear sampling is continuous in

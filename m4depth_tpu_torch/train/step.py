@@ -30,6 +30,7 @@ from m4depth_tpu_torch.metrics import (
     clip_for_eval,
     compute_metrics,
 )
+from m4depth_tpu_torch.models.decoder import LevelEstimate
 from m4depth_tpu_torch.models.m4depth import M4Depth, ModelState
 
 Batch = Dict[str, torch.Tensor]
@@ -196,7 +197,9 @@ def _summary_images(batch: Batch, preds, camera: Camera
         "depth_gt": log_norm(gt[0]),
     }
     for i, est in enumerate(preds[-1]):
-        images[f"depth_lvl_{i}"] = log_norm(est.depth[0])
+        # an M4Depth pyramid holds LevelEstimates, a V1 one depth maps
+        depth = est.depth if isinstance(est, LevelEstimate) else est
+        images[f"depth_lvl_{i}"] = log_norm(depth[0])
     return {k: v.detach() for k, v in images.items()}
 
 

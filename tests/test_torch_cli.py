@@ -115,6 +115,28 @@ def test_validation_mode_ledgers_the_latest_checkpoint(env, trained):
         assert len(f.readline().split()) == 7
 
 
+def test_v1_runs_every_mode(env, tmp_path):
+    """``--model=m4depth-v1``: train 2 epochs, validation of the latest
+    checkpoint, eval (7 finite metrics) and predict, on the CPU."""
+    ckpt = str(tmp_path / "v1")
+    v1 = "--model=m4depth-v1"
+    assert cli.main(train_args(env, ckpt, v1, "--total_steps=2")) == 0
+    assert TrainCheckpointManager(os.path.join(ckpt, "train")).epochs() == [
+        0, 1]
+    assert cli.main(["--mode=validation", f"--ckpt_dir={ckpt}",
+                     "--validation_max_batches=2", *midair(env, v1)]) == 0
+    with open(os.path.join(ckpt, "best", "validation_perfs.csv")) as f:
+        assert f.read().splitlines()[-1].endswith("ckpt-0001")
+    assert cli.main(["--mode=eval", f"--ckpt_dir={ckpt}",
+                     *midair(env, v1)]) == 0
+    perfs = np.loadtxt(os.path.join(ckpt, "perfs-midair.txt"))
+    assert perfs.shape == (7,) and np.all(np.isfinite(perfs))
+    out = str(tmp_path / "pred")
+    assert cli.main(["--mode=predict", f"--ckpt_dir={ckpt}",
+                     f"--output_dir={out}", *midair(env, v1)]) == 0
+    assert len(os.listdir(out)) == 12
+
+
 def test_validation_without_a_checkpoint_refuses(env, tmp_path):
     ckpt = str(tmp_path / "fresh")
     assert cli.main(["--mode=validation", f"--ckpt_dir={ckpt}",
@@ -229,15 +251,19 @@ def test_subprocess_validator_is_single_in_flight():
 
 @pytest.mark.parametrize("flag,effect", [
     ("--dscv_impl=split", "one implementation"),
-    ("--remat", "one implementation"),
+    # ported: runs, and prints no "changes nothing" line
+    ("--remat", None),
     ("--save_interval=5", "reads it nowhere"),
     ("--data_mesh=4", NotImplementedError),
-    ("--model=m4depth-v1", NotImplementedError),
+    ("--model=m4depth-v1", None),
 ])
 def test_tpu_flags_are_accepted_and_unported_ones_raise(env, tmp_path, flag,
                                                         effect, capsys):
     args = ["--mode=predict", f"--ckpt_dir={tmp_path}", flag, *midair(env)]
-    if isinstance(effect, str):
+    if effect is None:
+        assert cli.main(args) == 0
+        assert "changes nothing" not in capsys.readouterr().out
+    elif isinstance(effect, str):
         assert cli.main(args) == 0
         assert effect in capsys.readouterr().out
     else:

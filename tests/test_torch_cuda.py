@@ -85,17 +85,35 @@ LEVEL_IDS = [f"b{b}-{h}x{w}-C{C}-cuts{cuts}"
     LEVEL_SHAPES + [((2, 20, 24, 16), 1), ((2, 7, 5, 32), 2)],
     ids=LEVEL_IDS + ["ragged-20x24", "ragged-7x5"])
 def test_sncv_kernel_matches_plain(cuda, shape, cuts, same, dtype):
+    _check_sncv_forward(cuda, shape, cuts, same, dtype, radius=3)
+
+
+def _check_sncv_forward(cuda, shape, cuts, same, dtype, radius):
     rng = np.random.RandomState(0)
     c1 = torch.from_numpy(norm_cuts(rng.randn(*shape), cuts)).to(cuda, dtype)
     c2 = c1 if same else torch.from_numpy(
         norm_cuts(rng.randn(*shape), cuts)).to(cuda, dtype)
     before = SNCV_KERNEL.launches
-    out = spatial_cost_volume_fused(c1, c2, 3, cuts, dtype)
+    out = spatial_cost_volume_fused(c1, c2, radius, cuts, dtype)
     torch.cuda.synchronize()
     assert SNCV_KERNEL.launches == before + 1
-    ref = spatial_cost_volume(c1, c2, 3, cuts, dtype)
-    assert out.shape == shape[:3] + (49 * cuts,)
+    ref = spatial_cost_volume(c1, c2, radius, cuts, dtype)
+    assert out.shape == shape[:3] + ((2 * radius + 1) ** 2 * cuts,)
     torch.testing.assert_close(out, ref, **SNCV_TOL)
+
+
+# The V1 model's SNCV: a 9x9 cross-correlation (radius 4) of one cut of the
+# current features with the warped previous ones (c1 != c2), at the d6
+# model's level shapes, b=1 and b=3.
+V1_LEVEL_SHAPES = [((b, h, w, C), 1) for b in (1, 3)
+                   for h, w, C, _ in D6_LEVELS]
+V1_LEVEL_IDS = [f"v1-b{b}-{h}x{w}-C{C}" for (b, h, w, C), _ in V1_LEVEL_SHAPES]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,cuts", V1_LEVEL_SHAPES, ids=V1_LEVEL_IDS)
+def test_sncv_radius4_kernel_matches_plain(cuda, shape, cuts, dtype):
+    _check_sncv_forward(cuda, shape, cuts, False, dtype, radius=4)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -222,18 +240,29 @@ BACKWARD_DSCV_IDS = LEVEL_IDS + ["ragged-24x20-cuts1", "ragged-24x20-cuts4",
 @pytest.mark.parametrize("shape,cuts", BACKWARD_SNCV_SHAPES,
                          ids=BACKWARD_SNCV_IDS)
 def test_sncv_backward_kernel_matches_plain(cuda, shape, cuts, same, dtype):
+    _check_sncv_backward(cuda, shape, cuts, same, dtype, radius=3)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,cuts", V1_LEVEL_SHAPES, ids=V1_LEVEL_IDS)
+def test_sncv_radius4_backward_kernel_matches_plain(cuda, shape, cuts,
+                                                    dtype):
+    _check_sncv_backward(cuda, shape, cuts, False, dtype, radius=4)
+
+
+def _check_sncv_backward(cuda, shape, cuts, same, dtype, radius):
     rng = np.random.RandomState(1)
     c1 = torch.from_numpy(norm_cuts(rng.randn(*shape), cuts)).to(cuda, dtype)
     c2 = c1 if same else torch.from_numpy(
         norm_cuts(rng.randn(*shape), cuts)).to(cuda, dtype)
-    g = torch.from_numpy(rng.randn(*shape[:3], 49 * cuts).astype(
-        np.float32)).to(cuda)
+    g = torch.from_numpy(rng.randn(
+        *shape[:3], (2 * radius + 1) ** 2 * cuts).astype(np.float32)).to(cuda)
     grads, launched = [], []
     for fn in (spatial_cost_volume_fused, spatial_cost_volume):
         a = c1.detach().clone().requires_grad_()
         b = a if same else c2.detach().clone().requires_grad_()
         before = SNCV_BACKWARD_KERNEL.launches
-        (fn(a, b, 3, cuts, dtype) * g).sum().backward()
+        (fn(a, b, radius, cuts, dtype) * g).sum().backward()
         torch.cuda.synchronize()
         launched.append(SNCV_BACKWARD_KERNEL.launches - before)
         grads.append([a.grad] if same else [a.grad, b.grad])
