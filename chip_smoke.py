@@ -70,7 +70,23 @@ exits non-zero and prints no result line:
 13. the geometry gates: ``m4depth_tpu_torch.tools.synthetic_validation
    --mode overfit`` with M4Depth (1000 steps) and with V1 (1200 steps),
    each of which must print ``GEOMETRY VALIDATION PASSED``;
-14. one JSON line listing the four kernels, then the result line
+14. parallel serving (``m4depth_tpu_torch.parallel``), d6 384x384 bf16:
+   ``sharded_stream`` on the card at 1, 4 and 8 streams (before N=4
+   and N=8 the two forward kernels against their plain versions at the six
+   level shapes at b=N, as phase 2; ms a step,
+   frames/s, peak memory, the live allocations and their requested bytes
+   equal after frame 10 and after the last, 6 launches of each forward
+   kernel a step, each stream's first 5 frames against it alone at b=1,
+   no collective in a profile);
+   ``FreshFrameStream`` against the serial loop, bitwise, one frame late;
+   the port's ``tools/fresh_frame_bench.py``, its five loops at 200 frames;
+15. data-parallel training: ``distributed_init`` of a world of one over
+   NCCL in this process, the training path of phase 8 through
+   ``data_parallel`` and a float32 step against the plain one; two ranks
+   on the one card over gloo (``torch.multiprocessing.spawn``), a float32
+   step against one process on the global batch and timed bf16 steps;
+   the CLI's train mode under ``python -m torch.distributed.run``;
+16. one JSON line listing the four kernels, then the result line
    ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device it exits with code 2 before running anything.
@@ -80,10 +96,12 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import gc
 import io
 import json
 import os
 import re
+import socket
 import statistics
 import subprocess
 import sys
@@ -121,9 +139,12 @@ from m4depth_tpu_torch.testing import (
     STEP_LOSS_RTOL,
     assert_dscv_grads_close,
     assert_sncv_grads_close,
+    assert_step_close,
     assert_train_step_close,
+    float32_step,
     max_abs_err,
     tie_free_pixels,
+    train_batch,
 )
 from m4depth_tpu_torch.train import make_optimizer, make_train_step
 
@@ -278,11 +299,12 @@ def dscv_args(x, dtype, rot=None):
 # -- phase 2 ----------------------------------------------------------------
 
 
-def phase_kernels_vs_plain(cfg: ModelConfig, dev) -> dict:
-    """Each kernel against its plain version at every level shape, in
-    float32 and bfloat16; returns the largest error seen per kernel."""
+def forwards_vs_plain(cfg: ModelConfig, dev, b: int) -> dict:
+    """M4Depth's two forward kernels against their plain versions at every
+    level shape at batch b, in float32 and bfloat16; returns the largest
+    error seen per kernel."""
     worst = dict.fromkeys(FORWARD, 0.0)
-    for spec in level_specs(cfg):
+    for spec in level_specs(cfg, b):
         level, h, w, C, cuts = spec[:5]
         x = op_inputs(spec, dev, seed=level)
         for dtype in (torch.float32, torch.bfloat16):
@@ -290,13 +312,13 @@ def phase_kernels_vs_plain(cfg: ModelConfig, dev) -> dict:
             c1, c2 = x["c1"].to(dtype), x["c2"].to(dtype)
             errs = []
             # the model's autocorrelation, and a cross-correlation
-            for a, b in ((c1, c1), (c1, c2)):
-                out = spatial_cost_volume_fused(a, b, SPATIAL_SEARCH, cuts,
+            for u, v in ((c1, c1), (c1, c2)):
+                out = spatial_cost_volume_fused(u, v, SPATIAL_SEARCH, cuts,
                                                 dtype, LEAKY)
-                ref = spatial_cost_volume(a, b, SPATIAL_SEARCH, cuts, dtype,
+                ref = spatial_cost_volume(u, v, SPATIAL_SEARCH, cuts, dtype,
                                           LEAKY)
                 torch.cuda.synchronize()
-                check(out.shape == (1, h, w, 49 * cuts), f"sncv {out.shape}")
+                check(out.shape == (b, h, w, 49 * cuts), f"sncv {out.shape}")
                 torch.testing.assert_close(out, ref, **SNCV_TOL)
                 errs.append(max_abs_err(out, ref))
             worst["sncv_forward"] = max(worst["sncv_forward"], *errs)
@@ -307,8 +329,8 @@ def phase_kernels_vs_plain(cfg: ModelConfig, dev) -> dict:
                 cv, para = parallax_sweeping_cv_fused(*args, cuts, dtype)
                 cv_ref, para_ref = parallax_sweeping_cv(*args, cuts, dtype)
                 torch.cuda.synchronize()
-                check(cv.shape == (1, h, w, 9 * cuts)
-                      and para.shape == (1, h, w, 1),
+                check(cv.shape == (b, h, w, 9 * cuts)
+                      and para.shape == (b, h, w, 1),
                       f"dscv {cv.shape} {para.shape}")
                 torch.testing.assert_close(cv, cv_ref, **DSCV_CV_TOL)
                 torch.testing.assert_close(para, para_ref, **DSCV_PARA_TOL)
@@ -316,11 +338,18 @@ def phase_kernels_vs_plain(cfg: ModelConfig, dev) -> dict:
                                max_abs_err(para, para_ref)))
             worst["dscv_forward"] = max(worst["dscv_forward"],
                                         *(e for p in d_errs for e in p))
-            log(f"  level {level} {h}x{w} C={C} cuts={cuts} {name}: "
+            log(f"  level {level} b={b} {h}x{w} C={C} cuts={cuts} {name}: "
                 f"sncv max|err| {errs[0]:.3e} (c1 is c2), {errs[1]:.3e} "
                 f"(c1 != c2); dscv cv, parallax max|err| "
                 f"{d_errs[0][0]:.3e}, {d_errs[0][1]:.3e} (quaternion), "
                 f"{d_errs[1][0]:.3e}, {d_errs[1][1]:.3e} (small angle)")
+    return worst
+
+
+def phase_kernels_vs_plain(cfg: ModelConfig, dev) -> dict:
+    """Each kernel against its plain version at every level shape, in
+    float32 and bfloat16; returns the largest error seen per kernel."""
+    worst = forwards_vs_plain(cfg, dev, 1)
     # V1: radius 4, one cut, the current features against the warped ones
     for b in (1, TRAIN_B):
         for spec in level_specs(cfg, b, v1=True):
@@ -475,21 +504,6 @@ def phase_model_card_vs_cpu(dev) -> None:
 
 
 # -- phase 5 ----------------------------------------------------------------
-
-
-def train_batch(b: int, T: int, hw: int, seed: int, rot, trans, dev):
-    """A training window made with numpy from a seed: frames in [0, 1],
-    depth 1 + 60 U, one motion for every frame, f = c = hw / 2."""
-    rng = np.random.RandomState(seed)
-    batch = {
-        "rgb": rng.rand(b, T, hw, hw, 3).astype(np.float32),
-        "depth": (1.0 + 60 * rng.rand(b, T, hw, hw, 1)).astype(np.float32),
-        "rot": np.tile(np.asarray(rot, np.float32), (b, T, 1)),
-        "trans": np.tile(np.asarray(trans, np.float32), (b, T, 1)),
-        "camera_f": np.full((b, 2), hw / 2.0, np.float32),
-        "camera_c": np.full((b, 2), hw / 2.0, np.float32),
-    }
-    return {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
 
 
 @contextlib.contextmanager
@@ -754,21 +768,24 @@ def phase_profile(run, n: int, unit: str) -> None:
 
 
 def phase_train_path(dev, family=M4Depth, T: int = TRAIN_T,
-                     per_step=None, **cfg_kw):
+                     per_step=None, wrap=None, **cfg_kw):
     """The training path: ``make_train_step`` of the d6 ``family`` at
     384x384, b=3, T frames, bf16/bf16 (``cfg_kw`` adds model settings),
     Adam at 1e-4, on a seeded batch with bench's motion; each step must
     launch ``per_step`` of each kernel (default: M4Depth's, each kernel
-    once a level of each frame after the first). The launch counts are
-    zeroed just before the first step and read just after the last one."""
+    once a level of each frame after the first). ``wrap`` (phase 15:
+    ``data_parallel``) wraps the model that the step runs. The launch
+    counts are zeroed just before the first step and read just after the
+    last one."""
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     cfg = ModelConfig(compute_dtype="bfloat16", cv_dtype="bfloat16", **cfg_kw)
     if per_step is None:
         per_step = dict.fromkeys(KERNELS, (T - 1) * cfg.num_levels)
     model = family(cfg, device=dev, seed=0)
-    step = make_train_step(model, make_optimizer(
-        model, TrainConfig(learning_rate=LEARNING_RATE)))
+    step = make_train_step(model if wrap is None else wrap(model),
+                           make_optimizer(model, TrainConfig(
+                               learning_rate=LEARNING_RATE)))
     batch = train_batch(TRAIN_B, T, SIZE, 0, ROT, TRANS, dev)
     check(float(batch["camera_f"][0, 0]) == FOCAL, "f = c = 192")
 
@@ -1549,6 +1566,487 @@ def phase_kernel_times(cfg: ModelConfig, dev, b: int, with_backward: bool,
 # -- main -------------------------------------------------------------------
 
 
+# -- phase 14 ---------------------------------------------------------------
+
+# mostly lateral motion: a well-conditioned depth recurrence (phase 5's)
+CHECK_ROT, CHECK_TRANS = [1.0, 0.001, -0.002, 0.001], [0.3, 0.1, 0.02]
+# multi-stream serving: N streams batched on one card
+STREAM_COUNTS = (1, 4, 8)
+STREAM_WARMUP = 10          # memory_allocated() is read after this frame
+STREAM_BLOCKS, STREAM_BLOCK_FRAMES = 3, 20
+STREAM_CHECK_FRAMES = 5     # each stream against itself alone at b=1
+STREAM_PROFILED = 5
+# fresh-frame serving: pipelined against serial, and the bench's loops
+FRESH_CHECK_FRAMES = 8
+FRESH_BENCH_FRAMES = 200
+
+
+def stream_inputs(n: int, dev):
+    """N streams' frames from a seed and mostly lateral motion, its
+    translation scaled by 1 + i/4 for stream i: each stream has its own
+    depth scale, so a stream read in another's place shows. (Under bench's
+    mostly forward motion the random weights give depths near and below
+    zero, where a relative comparison of two bfloat16 runs means nothing;
+    the motion does not change the work a step does.)"""
+    g = torch.Generator().manual_seed(1)
+    rgb = torch.rand(n, SIZE, SIZE, 3, generator=g).to(dev)
+    scale = 1 + torch.arange(n, dtype=torch.float32)[:, None] / 4
+    f = torch.full((n, 2), FOCAL, device=dev)
+    return (rgb, torch.tensor([CHECK_ROT] * n, device=dev),
+            (torch.tensor([CHECK_TRANS]) * scale).to(dev),
+            Camera(f, f.clone()))
+
+
+def live_allocations() -> tuple:
+    """(memory_allocated(), the live allocations, the bytes they asked
+    for). The first counts the allocator's blocks, and a request can land
+    on a larger cached block than before (left by an earlier phase) and
+    move it with nothing allocated; the other two count the tensors."""
+    stats = torch.cuda.memory_stats()
+    return (torch.cuda.memory_allocated(), stats["allocation.all.current"],
+            stats["requested_bytes.all.current"])
+
+
+def phase_sharded_serving(dev) -> dict:
+    """``parallel.sharded_stream`` on [dev] at each of STREAM_COUNTS
+    streams, d6 384x384 bf16: ms a step over timed blocks, frames/s, peak
+    memory above the run's baseline, memory_allocated() after frame
+    STREAM_WARMUP and after the last with the live allocations and the
+    bytes they asked for (those two equal: steady state allocates nothing),
+    the forward kernels' launches a step (6 each, whatever N),
+    and each stream's first frames against that stream alone through
+    ``M4Depth.step`` at b=1. Before each N above 1, the two forward kernels
+    against their plain versions at every level shape at b=N (as phase 2
+    at b=1). Then a profile of steps at the largest N must hold no
+    collective."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from m4depth_tpu_torch.parallel import (
+        assert_collective_free,
+        shard_stream_inputs,
+        sharded_stream,
+    )
+    from m4depth_tpu_torch.testing import assert_bf16_depth_close
+
+    card = gpu_name_and_power_limit()
+    cfg = ModelConfig(compute_dtype="bfloat16")
+    out = {}
+    for n in STREAM_COUNTS:
+        worst = forwards_vs_plain(cfg, dev, n) if n > 1 else {}
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        model = M4Depth(cfg, device=dev, seed=0)
+        step = sharded_stream(model, [dev])
+        rgb, rot, trans, cam = stream_inputs(n, dev)
+        go = torch.zeros(n, dtype=torch.bool, device=dev)
+        reset = torch.ones(n, dtype=torch.bool, device=dev)
+        state = shard_stream_inputs(
+            init_state(cfg, n, SIZE, SIZE, device=dev), [dev])
+        zero_launch_counts()
+        first = []
+        for i in range(STREAM_WARMUP):
+            state, depth = step(state, rgb, rot, trans, cam,
+                                reset if i == 0 else go)
+            if i < STREAM_CHECK_FRAMES:
+                first.append(depth.cpu())
+        # what earlier phases left to the garbage collector is freed first,
+        # so that only this loop's allocations can move the two reads
+        gc.collect()
+        torch.cuda.synchronize()
+        mem_warm = live_allocations()
+        block_ms = []
+        for _ in range(STREAM_BLOCKS):
+            t0 = time.perf_counter()
+            for _ in range(STREAM_BLOCK_FRAMES):
+                state, depth = step(state, rgb, rot, trans, cam, go)
+            torch.cuda.synchronize()
+            block_ms.append((time.perf_counter() - t0) * 1e3
+                            / STREAM_BLOCK_FRAMES)
+        launches = launch_counts()
+        gc.collect()
+        mem_end = live_allocations()
+        peak = torch.cuda.max_memory_allocated() - base
+        n_steps = STREAM_WARMUP + STREAM_BLOCKS * STREAM_BLOCK_FRAMES
+        check(depth.shape == (n, SIZE, SIZE, 1)
+              and bool(torch.isfinite(depth).all()),
+              f"N={n}: depth {depth.shape}, finite")
+        for k, count in launches.items():
+            want = 6 * n_steps if k in FORWARD else 0
+            check(count == want, f"N={n}: {k} {count} launches in "
+                  f"{n_steps} steps, expected {want}")
+        check(mem_end[1:] == mem_warm[1:], f"N={n}: (memory_allocated(), "
+              f"live allocations, bytes they asked for) {mem_warm} after "
+              f"frame {STREAM_WARMUP}, {mem_end} after the last")
+        errs = []
+        for i in range(n):
+            alone = init_state(cfg, 1, SIZE, SIZE, device=dev)
+            for t in range(STREAM_CHECK_FRAMES):
+                alone, d1 = model.step(
+                    alone, rgb[i:i + 1], rot[i:i + 1], trans[i:i + 1],
+                    Camera(cam.f[i:i + 1], cam.c[i:i + 1]),
+                    (reset if t == 0 else go)[:1])
+                errs.append(assert_bf16_depth_close(
+                    first[t][i:i + 1], d1.cpu(),
+                    f"N={n} stream {i} frame {t} against it alone"))
+        if n == STREAM_COUNTS[-1]:
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(STREAM_PROFILED):
+                    state, depth = step(state, rgb, rot, trans, cam, go)
+                torch.cuda.synchronize()
+            assert_collective_free(prof)
+            log(f"  N={n}: a profile of {STREAM_PROFILED} steps holds no "
+                "collective")
+        med = statistics.median(block_ms)
+        per_step = {k: c // n_steps for k, c in launches.items()}
+        log(f"  [{card}] N={n} streams: {med:.4f} ms/step median of "
+            f"{STREAM_BLOCKS} blocks of {STREAM_BLOCK_FRAMES} (blocks "
+            f"{', '.join(f'{v:.4f}' for v in block_ms)}; min "
+            f"{min(block_ms):.4f}, max {max(block_ms):.4f}); "
+            f"{1e3 * n / med:.2f} frames/s aggregate, {med / n:.4f} ms per "
+            f"stream-frame; peak {peak} bytes ({peak / 2 ** 20:.1f} MiB) "
+            f"above the baseline; (memory_allocated(), live allocations, "
+            f"bytes they asked for) {mem_warm} after frame {STREAM_WARMUP} "
+            f"and {mem_end} after frame {n_steps}; "
+            f"launches a step " + ", ".join(f"{k} {v}" for k, v in
+                                            per_step.items()))
+        log(f"  N={n}: each stream's first {STREAM_CHECK_FRAMES} frames "
+            "against it alone at b=1: relative error median "
+            f"{max(e[0] for e in errs):.3e} at worst, 99th percentile "
+            f"{max(e[1] for e in errs):.3e} at worst")
+        out[n] = dict(ms_per_step=med, block_ms=block_ms,
+                      frames_per_s=1e3 * n / med, peak_above_base=peak,
+                      launches_per_step=per_step, max_abs_err=worst)
+        del model, step, state, depth, rgb, first
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_fresh_frames(dev) -> dict:
+    """``FreshFrameStream`` against the serial loop, frame by frame and one
+    frame late (bitwise: the same kernels on the same bytes), with the
+    forward kernels' launches; then the port's ``fresh_frame_bench``, all
+    five loops at FRESH_BENCH_FRAMES frames, consuming every depth."""
+    from m4depth_tpu_torch.parallel import FreshFrameStream
+    from m4depth_tpu_torch.tools import fresh_frame_bench
+
+    card = gpu_name_and_power_limit()
+    cfg = ModelConfig(compute_dtype="bfloat16")
+    model = M4Depth(cfg, device=dev, seed=0)
+    rng = np.random.RandomState(2)
+    frames = [rng.rand(1, SIZE, SIZE, 3).astype(np.float32)
+              for _ in range(FRESH_CHECK_FRAMES)]
+    rot = np.asarray([ROT], np.float32)
+    trans = np.asarray([TRANS], np.float32)
+    f = np.full((1, 2), FOCAL, np.float32)
+    serial = []
+    state = init_state(cfg, 1, SIZE, SIZE, device=dev)
+    for t, fr in enumerate(frames):
+        state, depth = model.step(
+            state, torch.from_numpy(fr).to(dev), torch.from_numpy(rot).to(dev),
+            torch.from_numpy(trans).to(dev),
+            Camera(torch.from_numpy(f).to(dev), torch.from_numpy(f).to(dev)),
+            torch.tensor([t == 0], device=dev))
+        serial.append(depth)
+    zero_launch_counts()
+    sess = FreshFrameStream(model, init_state(cfg, 1, SIZE, SIZE,
+                                              device=dev), device=dev)
+    piped = []
+    for t, fr in enumerate(frames):
+        d = sess.push(fr, rot, trans, Camera(f, f.copy()), np.array([t == 0]))
+        check((d is None) == (t == 0), f"push {t} returned {d is None}")
+        if d is not None:
+            piped.append(d)
+    piped.append(sess.flush())
+    check(sess.flush() is None, "a second flush returns None")
+    launches = launch_counts()
+    for k, count in launches.items():
+        want = 6 * len(frames) if k in FORWARD else 0
+        check(count == want, f"FreshFrameStream: {k} {count} launches in "
+              f"{len(frames)} frames, expected {want}")
+    for t, (a, b) in enumerate(zip(piped, serial)):
+        check(torch.equal(a, b), f"pipelined depth of frame {t} equals the "
+              f"serial loop's (max diff {max_abs_err(a, b)})")
+    log(f"  FreshFrameStream: {len(frames)} frames, each depth one push late "
+        "and equal to the serial loop's (bitwise); launches "
+        + ", ".join(f"{k} {v}" for k, v in launches.items()))
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        rc = fresh_frame_bench.main([f"--frames={FRESH_BENCH_FRAMES}",
+                                     "--consume=every", f"--size={SIZE}",
+                                     f"--device={dev}"])
+    check(rc == 0, "fresh_frame_bench")
+    out = {}
+    for line in text.getvalue().splitlines():
+        log(f"    | {line}")
+        m = re.match(r"(\w+): ([0-9.]+) ms/frame .*; ([0-9.]+) frames/s",
+                     line)
+        if m:
+            out[m.group(1)] = dict(ms_per_frame=float(m.group(2)),
+                                   frames_per_s=float(m.group(3)))
+    check(tuple(out) == fresh_frame_bench.VARIANTS,
+          f"the bench's loops: {tuple(out)}")
+    log(f"  [{card}] fresh frames, d6 {SIZE}x{SIZE} b=1 bf16, "
+        f"{FRESH_BENCH_FRAMES} frames, every depth read back: " + "; ".join(
+            f"{k} {v['ms_per_frame']:.4f} ms/frame ({v['frames_per_s']:.2f} "
+            "frames/s)" for k, v in out.items()))
+    out["launches_per_frame"] = {k: c // len(frames)
+                                 for k, c in launches.items()}
+    return out
+
+
+# -- phase 15 ---------------------------------------------------------------
+
+# the data-parallel step checked against the plain one: float32, d6
+DDP_CHECK_HW, DDP_CHECK_B, DDP_CHECK_T = 128, 2, 3
+DDP_CHECK_SEEDS = (3, 12)   # weights, batch
+DDP_CHECK_STEP = (DDP_CHECK_SEEDS[0], LEARNING_RATE)  # float32_step's
+GLOO_RANKS, GLOO_TIMED_STEPS = 2, 6
+CLI_DDP_STEPS = 5
+
+
+def free_port() -> int:
+    with contextlib.closing(socket.socket()) as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def check_step_close(got: dict, ref: dict, what: str) -> None:
+    res = assert_step_close(got, ref, LEARNING_RATE, what)
+    worst = list(res["shares"].items())[:2]
+    log(f"  {what}: loss {got['scalars']['loss']:.7f} against "
+        f"{ref['scalars']['loss']:.7f}; grad_norm "
+        f"{got['scalars']['grad_norm']:.7f} against "
+        f"{ref['scalars']['grad_norm']:.7f}; largest |grad - ref| as a "
+        "share of its tolerance: " + ", ".join(
+            f"{n} {v:.3e}" for n, v in worst))
+
+
+def phase_ddp_world1(dev, train_ms: float) -> dict:
+    """``distributed_init`` of a world of one over NCCL in this process,
+    ``data_parallel(model, make_mesh())``: the training path of phase 8
+    through the wrapper, in turns with the plain path (plain, wrapped,
+    wrapped, plain: host-bound times compare only side by side), then one
+    float32 step at DDP_CHECK_HW against the plain step on the card. The
+    group is destroyed before the phase ends."""
+    import torch.distributed as dist
+
+    from m4depth_tpu_torch.parallel import distributed_init, make_mesh
+    from m4depth_tpu_torch.train import data_parallel
+
+    card = gpu_name_and_power_limit()
+    backend = distributed_init(f"localhost:{free_port()}", 1, 0, device=dev)
+    check(backend == ("nccl" if dev.type == "cuda" else "gloo"),
+          f"the default backend on {dev}: {backend}")
+    try:
+        mesh = make_mesh()
+        runs = {"plain": [], "ddp": []}
+        for name in ("plain", "ddp", "ddp", "plain"):
+            log(f"  {name}: d6 {SIZE}x{SIZE} b={TRAIN_B} T={TRAIN_T} bf16"
+                + (f" through DistributedDataParallel over {mesh}"
+                   if name == "ddp" else ""))
+            run = phase_train_path(dev, wrap=(
+                None if name == "plain"
+                else lambda m: data_parallel(m, mesh)))
+            del run["run"]
+            runs[name].append(run)
+        ms = {k: [r["ms_per_step"] for r in v] for k, v in runs.items()}
+        mean = {k: sum(v) / len(v) for k, v in ms.items()}
+        text = {k: ", ".join(f"{v:.4f}" for v in vals)
+                for k, vals in ms.items()}
+        log(f"  [{card}] world 1 over NCCL: {text['ddp']} ms/step through "
+            f"the wrapper against {text['plain']} without it in turns "
+            f"({100 * (mean['ddp'] / mean['plain'] - 1):+.2f}%), and "
+            f"phase 8's {train_ms:.4f}; peak "
+            f"{runs['ddp'][-1]['peak_above_base']} bytes above the baseline "
+            f"(plain {runs['plain'][-1]['peak_above_base']})")
+        batch = train_batch(DDP_CHECK_B, DDP_CHECK_T, DDP_CHECK_HW,
+                            DDP_CHECK_SEEDS[1], CHECK_ROT, CHECK_TRANS, dev)
+        check_step_close(
+            float32_step(dev, batch, *DDP_CHECK_STEP,
+                         lambda m: data_parallel(m, mesh)),
+            float32_step(dev, batch, *DDP_CHECK_STEP),
+            f"world 1 over NCCL, float32 d6 {DDP_CHECK_HW}x{DDP_CHECK_HW} "
+            f"b={DDP_CHECK_B} T={DDP_CHECK_T}, against the plain step")
+    finally:
+        dist.destroy_process_group()
+    check(not dist.is_initialized(), "the group is destroyed")
+    torch.cuda.empty_cache()
+    return dict(runs["ddp"][-1], ms_plain=ms["plain"], ms_ddp=ms["ddp"])
+
+
+def gloo_rank(rank: int, port: int, out_dir: str, device: str) -> None:
+    """One of GLOO_RANKS ranks on the one card, over gloo (started by
+    ``torch.multiprocessing.spawn``): the float32 check step on its half of
+    the global batch, then GLOO_TIMED_STEPS timed steps of the training
+    path at b=TRAIN_B a rank, a profile of one step, and its launches.
+    Writes what it saw to ``out_dir/rank<rank>.pt``."""
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+
+    from m4depth_tpu_torch.parallel import (
+        distributed_init,
+        local_batch,
+        make_mesh,
+    )
+    from m4depth_tpu_torch.train import data_parallel
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(device)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    distributed_init(f"localhost:{port}", GLOO_RANKS, rank, backend="gloo",
+                     device=dev)
+    try:
+        mesh = make_mesh()
+
+        def wrap(model):
+            return data_parallel(model, mesh)
+
+        gb = train_batch(DDP_CHECK_B * GLOO_RANKS, DDP_CHECK_T, DDP_CHECK_HW,
+                         DDP_CHECK_SEEDS[1], CHECK_ROT, CHECK_TRANS, dev)
+        out = dict(check=float32_step(dev, local_batch(gb, mesh),
+                                      *DDP_CHECK_STEP, wrap))
+
+        model = M4Depth(ModelConfig(compute_dtype="bfloat16",
+                                    cv_dtype="bfloat16"), device=dev, seed=0)
+        step = make_train_step(wrap(model), make_optimizer(
+            model, TrainConfig(learning_rate=LEARNING_RATE)))
+        batch = train_batch(TRAIN_B, TRAIN_T, SIZE, rank, ROT, TRANS, dev)
+        step(batch)
+        sync()
+        zero_launch_counts()
+        step_ms, losses = [], []
+        for _ in range(GLOO_TIMED_STEPS):
+            t0 = time.perf_counter()
+            losses.append(step(batch)["loss"].item())
+            sync()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        out["launches"] = launch_counts()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            step(batch)
+            sync()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        comm_us = sum(e.cpu_time_total for e in prof.key_averages()
+                      if e.key.startswith("gloo:"))
+        out.update(step_ms=step_ms, losses=losses, wall_us=wall_us,
+                   comm_us=comm_us, comm_events=sorted(
+                       e.key for e in prof.key_averages()
+                       if e.key.startswith(("gloo:", "c10d::"))))
+        torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_ddp_gloo(dev) -> dict:
+    """GLOO_RANKS ranks on the one card over gloo (NCCL refuses two ranks on
+    one device; gloo all-reduces CUDA tensors through the host, so its time
+    is no multi-GPU number): the averaged loss and gradients of a float32
+    step on the global batch against one process's step on it, both ranks'
+    weights equal after it; each rank's ms/step and the all-reduce's share
+    of a profiled step; 18 launches of each kernel a step on each rank."""
+    import torch.multiprocessing as mp
+
+    card = gpu_name_and_power_limit()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        mp.spawn(gloo_rank, args=(free_port(), tmp, str(dev)),
+                 nprocs=GLOO_RANKS, join=True)
+        spawn_s = time.perf_counter() - t0
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"),
+                            weights_only=False) for r in range(GLOO_RANKS)]
+    gb = train_batch(DDP_CHECK_B * GLOO_RANKS, DDP_CHECK_T, DDP_CHECK_HW,
+                     DDP_CHECK_SEEDS[1], CHECK_ROT, CHECK_TRANS, dev)
+    ref = float32_step(dev, gb, *DDP_CHECK_STEP)
+    for r, out in enumerate(ranks):
+        check_step_close(out["check"], ref, f"rank {r} of {GLOO_RANKS} over "
+                         f"gloo, float32 d6 {DDP_CHECK_HW}x{DDP_CHECK_HW} "
+                         f"local b={DDP_CHECK_B}, against one process on "
+                         f"the global b={DDP_CHECK_B * GLOO_RANKS}")
+        check(all(torch.equal(p, ranks[0]["check"]["params"][n])
+                  for n, p in out["check"]["params"].items()),
+              f"rank {r}'s weights after the step equal rank 0's")
+    per_step = (TRAIN_T - 1) * 6
+    for r, out in enumerate(ranks):
+        for k, count in out["launches"].items():
+            check(count == per_step * GLOO_TIMED_STEPS,
+                  f"rank {r}: {k} {count} launches in {GLOO_TIMED_STEPS} "
+                  f"steps, expected {per_step} a step")
+        check(all(np.isfinite(v) for v in out["losses"]), "finite losses")
+        med = statistics.median(out["step_ms"])
+        log(f"  [{card}] rank {r} of {GLOO_RANKS} on one card over gloo, "
+            f"d6 {SIZE}x{SIZE} local b={TRAIN_B} T={TRAIN_T} bf16: "
+            f"{med:.4f} ms/step median of {GLOO_TIMED_STEPS} (steps "
+            f"{', '.join(f'{v:.3f}' for v in out['step_ms'])}); gloo's "
+            f"all-reduce {out['comm_us']:.1f} us of a profiled step's "
+            f"{out['wall_us']:.1f} ({100 * out['comm_us'] / out['wall_us']:.1f}"
+            f"%); launches a step " + ", ".join(
+                f"{k} {c // GLOO_TIMED_STEPS}"
+                for k, c in out["launches"].items())
+            + f"; profiled collectives {out['comm_events']}")
+    log(f"  the two ranks ran in {spawn_s:.1f} s from spawn to exit")
+    return dict(ranks=[dict(ms_per_step=statistics.median(o["step_ms"]),
+                            comm_share=o["comm_us"] / o["wall_us"],
+                            launches_per_step={
+                                k: c // GLOO_TIMED_STEPS
+                                for k, c in o["launches"].items()})
+                       for o in ranks])
+
+
+def phase_cli_launcher(dev, cli_ms: float) -> float:
+    """The CLI's train mode under ``python -m torch.distributed.run
+    --nproc_per_node=1`` (a child process) with --data_mesh=1, on a store
+    like phase 11's, for CLI_DDP_STEPS steps: it must exit 0 and write one
+    checkpoint. Returns its ms/step with loading."""
+    card = gpu_name_and_power_limit()
+    repo = os.path.dirname(os.path.abspath(__file__))
+    path = os.environ.get("PYTHONPATH")
+    env = dict(os.environ, PYTHONPATH=repo + (os.pathsep + path
+                                              if path else ""))
+    with tempfile.TemporaryDirectory() as root:
+        location = write_synthetic_store(root)
+        ckpt = os.path.join(root, "ckpt")
+        argv = [sys.executable, "-m", "torch.distributed.run",
+                "--nproc_per_node=1", "--master_addr=localhost",
+                f"--master_port={free_port()}",
+                "-m", "m4depth_tpu_torch.cli.main", "--mode=train",
+                "--data_mesh=1", f"--ckpt_dir={ckpt}",
+                f"--platform={'gpu' if dev.type == 'cuda' else 'cpu'}",
+                f"--total_steps={CLI_DDP_STEPS}", "--dataset=midair",
+                f"--db_path_config={location}",
+                f"--record_store={os.path.join(root, 'store')}",
+                "--arch_depth=6", "--out_size", str(SIZE), str(SIZE),
+                "--num_workers=8", "--batch_size=3", "--seq_len=4",
+                "--db_seq_len=8", f"--summary_interval={CLI_LOG_EVERY}"]
+        t0 = time.perf_counter()
+        proc = subprocess.run(argv, capture_output=True, text=True, env=env,
+                              timeout=CHILD_TIMEOUT_S)
+        wall = time.perf_counter() - t0
+        for line in (proc.stdout + proc.stderr).splitlines()[-40:]:
+            log(f"    | {line}")
+        check(proc.returncode == 0, f"the CLI under the launcher exited "
+              f"{proc.returncode}")
+        saved = sorted(os.listdir(os.path.join(ckpt, "train")))
+        check(saved == ["0.pt"], f"checkpoints under the launcher: {saved}")
+    ms = parsed(r"step ms median ([0-9.]+)", proc.stdout,
+                "step time under the launcher")
+    log(f"  [{card}] train mode under torch.distributed.run at world 1 "
+        f"(DDP over NCCL), d6 {SIZE}x{SIZE} b=3 T=4 bf16 from the store: "
+        f"{ms:.3f} ms/step with loading, median of the steps after the "
+        f"first of {CLI_DDP_STEPS}, against phase 11's {cli_ms:.3f} without "
+        f"the launcher; {wall:.1f} s from start to exit")
+    return ms
+
+
 KERNEL_INFO = {
     "sncv_forward": dict(source="m4depth_tpu_torch/ops/csrc/sncv.cu",
                          replaces="m4depth_tpu/ops/sncv_pallas.py:28"),
@@ -1647,6 +2145,26 @@ def main() -> int:
     log("== phase 13: the geometry gates (synthetic_validation --mode "
         "overfit, d4 64x64 bf16)")
     gates = timed(13, phase_gates)
+    log("== phase 14: parallel serving, d6 384x384 bf16: sharded_stream "
+        f"on [{dev}] at N = {', '.join(map(str, STREAM_COUNTS))} streams, "
+        "the forward kernels against their plain versions at b=N; "
+        "FreshFrameStream against the serial loop; the port's "
+        "fresh_frame_bench")
+    t0 = time.perf_counter()
+    sharded = phase_sharded_serving(dev)
+    for r in sharded.values():
+        for key, err in r["max_abs_err"].items():
+            worst[key] = max(worst[key], err)
+    fresh = phase_fresh_frames(dev)
+    times[14] = time.perf_counter() - t0
+    log("== phase 15: data-parallel training: world 1 over NCCL in this "
+        f"process; {GLOO_RANKS} ranks on the one card over gloo; the CLI "
+        "under torch.distributed.run")
+    t0 = time.perf_counter()
+    ddp1 = phase_ddp_world1(dev, train["ms_per_step"])
+    gloo = phase_ddp_gloo(dev)
+    phase_cli_launcher(dev, cli["ms_step"])
+    times[15] = time.perf_counter() - t0
 
     kernels = []
     for key, info in KERNEL_INFO.items():
@@ -1698,6 +2216,16 @@ def main() -> int:
             v1_autograd_ms=v1t.get("autograd_ms") if v1t else None,
             v1_serving_ms=v1s["ms"] if v1s else None,
             v1_serving_bound_ms=v1s["bound_ms"] if v1s else None,
+            # phase 14: launches a step of sharded_stream at each N, and a
+            # frame of FreshFrameStream
+            sharded_serving_launches_per_step={
+                n: r["launches_per_step"][key] for n, r in sharded.items()},
+            fresh_frame_launches_per_frame=fresh["launches_per_frame"][key],
+            # phase 15: a step through DistributedDataParallel, world 1
+            # over NCCL, and each of the ranks over gloo
+            ddp_launches_per_step=ddp1["launches"][key] // ddp1["n_steps"],
+            gloo_rank_launches_per_step=[
+                r["launches_per_step"][key] for r in gloo["ranks"]],
             passed=True))
         check(kernels[-1]["launches_per_step"] == train["per_step"][key],
               f"{key} launches per step")

@@ -5,7 +5,8 @@ KITTI's output size, sampled 50/50, depth_type "velodyne", resumed from
 ``--ckpt_dir`` (``--mode=promote`` puts the Mid-Air weights there) for
 ``--finetune_steps`` more steps.
 
-Runs on the CUDA device unless ``--platform=cpu`` is given. From CSV
+Runs on the CUDA device unless ``--platform=cpu`` is given, and data
+parallel under ``torch.distributed.run`` as the CLI's train mode. From CSV
 manifests, as the JAX script (``--records_path`` holds
 ``kitti-raw-filtered/train_data`` and ``midair/train_data``):
   python -m m4depth_tpu_torch.cli.finetune_kitti --records_path=data \\
@@ -71,14 +72,15 @@ class JointSampler:
             n += 1
 
 
-def build_joint_datasets(cmd, db_paths: dict):
+def build_joint_datasets(cmd, db_paths: dict, host_shard: bool = False):
     """The KITTI and the cropped Mid-Air training sets, from
     ``--record_stores`` if given, else from the CSV manifests under
-    ``--records_path``."""
+    ``--records_path``; ``host_shard``: this rank's share of each."""
     from m4depth_tpu_torch.data import SequenceDataset, get_adapter
 
     common = dict(usecase="finetune", seq_len=4, batch_size=cmd.batch_size,
-                  augment=True, seed=cmd.seed, num_workers=cmd.num_workers)
+                  augment=True, seed=cmd.seed, num_workers=cmd.num_workers,
+                  host_shard=host_shard)
     if cmd.record_stores:
         from m4depth_tpu_torch.data.records import RecordSequenceDataset
 
@@ -110,6 +112,7 @@ def main(argv=None):
     from m4depth_tpu_torch.cli.main import (
         SubprocessValidator,
         build_model,
+        launcher_mesh,
         make_validation_fn,
     )
     from m4depth_tpu_torch.cli.options import (
@@ -146,7 +149,9 @@ def main(argv=None):
 
     from m4depth_tpu_torch.train.loop import fit
 
-    kitti, midair = build_joint_datasets(cmd, db_paths)
+    mesh = launcher_mesh(device)
+    kitti, midair = build_joint_datasets(cmd, db_paths,
+                                         host_shard=mesh is not None)
     joint = JointSampler(kitti, midair, seed=cmd.seed)
 
     cfg = model_config_from_args(cmd, depth_type="velodyne")
@@ -162,8 +167,14 @@ def main(argv=None):
         else:
             validation_fn = make_validation_fn(cmd, model, db_paths)
 
-    fit(model, joint, tcfg, total_steps=total, resume=True,
-        validation_fn=validation_fn)
+    try:
+        fit(model, joint, tcfg, total_steps=total, resume=True,
+            validation_fn=validation_fn, mesh=mesh)
+    finally:
+        if mesh is not None:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
     return 0
 
 

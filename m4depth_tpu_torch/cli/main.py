@@ -8,6 +8,13 @@ Runs on the CUDA device unless ``--platform=cpu`` is given. Usage:
   python -m m4depth_tpu_torch.cli.main --mode=train --dataset=midair \\
       --records_path=data/midair/train_data --db_seq_len=8 --seq_len=4
 
+Train and finetune modes train data parallel under a launcher that sets
+``WORLD_SIZE``, ``RANK``, ``LOCAL_RANK``, ``MASTER_ADDR`` and
+``MASTER_PORT``, one rank a card (``--batch_size`` is each rank's):
+  python -m torch.distributed.run --nproc_per_node=4 \\
+      -m m4depth_tpu_torch.cli.main --mode=train ...
+The other modes run on one device and raise at a world size above 1.
+
 A torch module and its Adam state are built without a sample batch, so the
 JAX module's ``init_sample`` has no counterpart.
 """
@@ -23,6 +30,12 @@ import numpy as np
 from m4depth_tpu_torch.cli.options import REPO_ROOT
 from m4depth_tpu_torch.metrics import METRIC_NAMES
 
+# what a launcher (torch.distributed.run) tells each rank
+LAUNCHER_VARS = ("WORLD_SIZE", "RANK", "LOCAL_RANK", "LOCAL_WORLD_SIZE",
+                 "GROUP_RANK", "GROUP_WORLD_SIZE", "ROLE_RANK",
+                 "ROLE_WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT",
+                 "TORCHELASTIC_USE_AGENT_STORE")
+
 
 def build_model(cmd, cfg, device):
     """M4Depth, or M4DepthV1 for ``--model=m4depth-v1`` (fed the data
@@ -35,12 +48,13 @@ def build_model(cmd, cfg, device):
 
 
 def build_dataset(cmd, usecase: str, db_paths: dict, batch_size: int,
-                  records_path=None, db_seq_len="unset"):
+                  records_path=None, db_seq_len="unset",
+                  host_shard: bool = False):
     """The dataset of ``cmd.dataset`` for ``usecase``: from
     ``--record_store`` if given, else from the CSV manifests under
     ``records_path`` (default ``--records_path``). ``db_seq_len`` overrides
     ``--db_seq_len`` unless it is ``"unset"`` (None is a value: no
-    windows)."""
+    windows). ``host_shard``: this rank's share of the windows only."""
     from m4depth_tpu_torch.data import SequenceDataset, get_adapter
 
     adapter = get_adapter(cmd.dataset)
@@ -69,6 +83,7 @@ def build_dataset(cmd, usecase: str, db_paths: dict, batch_size: int,
             augment=not cmd.no_augmentation,
             seed=cmd.seed,
             num_workers=cmd.num_workers,
+            host_shard=host_shard,
         )
     return SequenceDataset(
         adapter,
@@ -83,7 +98,22 @@ def build_dataset(cmd, usecase: str, db_paths: dict, batch_size: int,
         crop=crop,
         seed=cmd.seed,
         num_workers=cmd.num_workers,
+        host_shard=host_shard,
     )
+
+
+def launcher_mesh(device):
+    """Under a launcher (``WORLD_SIZE`` set): join its process group and
+    return a data mesh over every rank; ``None`` without one."""
+    if "WORLD_SIZE" not in os.environ:
+        return None
+    from m4depth_tpu_torch.parallel import distributed_init, make_mesh
+
+    distributed_init(
+        f"{os.environ['MASTER_ADDR']}:{os.environ['MASTER_PORT']}",
+        int(os.environ["WORLD_SIZE"]), int(os.environ["RANK"]),
+        device=device)
+    return make_mesh()
 
 
 def kitti_val_records(cmd) -> str:
@@ -118,10 +148,13 @@ class SubprocessValidator:
         if args is not None:
             self.args, self.env = args, env or dict(os.environ)
             return
-        # the child imports this package from the repository it runs in
+        # the child imports this package from the repository it runs in,
+        # and runs on one device outside the trainer's process group
         path = os.environ.get("PYTHONPATH")
-        self.env = dict(os.environ, PYTHONPATH=REPO_ROOT + (
-            os.pathsep + path if path else ""))
+        self.env = {k: v for k, v in os.environ.items()
+                    if k not in LAUNCHER_VARS}
+        self.env["PYTHONPATH"] = REPO_ROOT + (
+            os.pathsep + path if path else "")
         self.args = [
             sys.executable, "-m", "m4depth_tpu_torch.cli.main",
             "--mode=validation",
@@ -287,6 +320,7 @@ def main(argv=None):
         check_port_options,
         dataset_locations,
         device_from_args,
+        launcher_world,
         model_config_from_args,
         train_config_from_args,
     )
@@ -299,6 +333,12 @@ def main(argv=None):
         print(f"WARNING: ignoring unrecognized arguments: {unknown}",
               flush=True)
     check_port_options(cmd, parser)
+    world = launcher_world()
+    if world > 1 and cmd.mode not in ("train", "finetune"):
+        raise ValueError(
+            f"--mode={cmd.mode} runs on one device, as the JAX CLI's does; "
+            f"{world} ranks were started (WORLD_SIZE): only train and "
+            "finetune run data parallel")
     db_paths = dataset_locations(cmd)
 
     if cmd.mode == "convert":
@@ -342,7 +382,9 @@ def main(argv=None):
         usecase = "finetune" if cmd.mode == "finetune" else "train"
         if cmd.augment_device:
             cmd.no_augmentation = True  # the host pipeline only decodes
-        dataset = build_dataset(cmd, usecase, db_paths, cmd.batch_size)
+        mesh = launcher_mesh(device)
+        dataset = build_dataset(cmd, usecase, db_paths, cmd.batch_size,
+                                host_shard=mesh is not None)
         cfg = model_config_from_args(cmd, depth_type=dataset.depth_type)
         model = build_model(cmd, cfg, device)
         tcfg = train_config_from_args(cmd)
@@ -373,8 +415,15 @@ def main(argv=None):
                 dataset=cmd.dataset, usecase=usecase,
                 crop_to=(tuple(dataset.adapter.out_size)
                          if dataset.adapter.crop else None))
-        fit(model, dataset, tcfg, total_steps=total, resume=True,
-            validation_fn=validation_fn, augment_fn=augment_fn)
+        try:
+            fit(model, dataset, tcfg, total_steps=total, resume=True,
+                validation_fn=validation_fn, augment_fn=augment_fn,
+                mesh=mesh)
+        finally:
+            if mesh is not None:
+                import torch.distributed as dist
+
+                dist.destroy_process_group()
 
     elif cmd.mode in ("eval", "validation"):
         from m4depth_tpu_torch.eval import (

@@ -146,8 +146,9 @@ def build_parser(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
     g.add_argument("--seed", default=42, type=int,
                    help="Init/shuffle seed")
     g.add_argument("--data_mesh", default=-1, type=int,
-                   help="Devices on the data-parallel axis: the port trains "
-                        "on one (-1 or 1)")
+                   help="Ranks on the data-parallel axis: -1 or the world "
+                        "size that the launcher (torch.distributed.run) "
+                        "set, 1 without one; --batch_size is each rank's")
     g.add_argument("--num_workers", default=8, type=int)
     g.add_argument("--learning_rate", default=1e-4, type=float)
     g.add_argument("--total_steps", default=220000, type=int)
@@ -172,26 +173,39 @@ def build_parser(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
     return parser
 
 
+def launcher_world() -> int:
+    """The world size that a launcher (``torch.distributed.run``) set in
+    ``WORLD_SIZE``; 1 without one."""
+    return int(os.environ.get("WORLD_SIZE", 1))
+
+
 def check_port_options(cmd, parser: argparse.ArgumentParser) -> None:
     """Print one line for each TPU-only or unused flag given a value other
-    than ``parser``'s default, and raise for what the port does not run
-    yet."""
+    than ``parser``'s default, and raise ``ValueError`` for a
+    ``--data_mesh`` other than -1 or the launcher's world size (the data
+    axis spans every rank)."""
     for flags, why in ((TPU_ONLY, "the port has one implementation of this"),
                        (UNUSED, "the JAX CLI reads it nowhere either")):
         for flag in flags:
             if getattr(cmd, flag) != parser.get_default(flag):
                 print(f"--{flag}={getattr(cmd, flag)}: {why}; the flag "
                       "changes nothing", flush=True)
-    if cmd.data_mesh not in (-1, 1):
-        raise NotImplementedError(
-            f"--data_mesh={cmd.data_mesh}: the port trains on one device "
-            "until the parallel slice")
+    world = launcher_world()
+    if cmd.data_mesh not in (-1, world):
+        raise ValueError(
+            f"--data_mesh={cmd.data_mesh}: the data axis spans every rank "
+            f"and {world} were started (WORLD_SIZE); give -1 or {world}")
 
 
 def device_from_args(cmd) -> torch.device:
     """``cpu`` with --platform=cpu, else the CUDA device (raises without
-    one)."""
-    return resolve_device("cpu" if cmd.platform == "cpu" else "cuda")
+    one): under a launcher, the card of this rank's ``LOCAL_RANK``."""
+    if cmd.platform == "cpu":
+        return resolve_device("cpu")
+    if "LOCAL_RANK" in os.environ:
+        return resolve_device(torch.device(
+            "cuda", int(os.environ["LOCAL_RANK"])))
+    return resolve_device("cuda")
 
 
 def ablation_from_args(cmd) -> AblationFlags:

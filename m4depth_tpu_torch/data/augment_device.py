@@ -17,9 +17,10 @@ Semantics mirror ``data/augment.py``:
     size with a principal-point shift.
 
 Each sequence draws its parameters from its own ``torch.Generator`` on the
-CPU, seeded from ``(seed, step, index)``: a handful of scalars, so the
-device is never waited on, and the same (seed, step) gives the same batch
-on any device. A flip that is not drawn is not computed.
+CPU, seeded from ``(seed, step, index)``, with the index taken in the
+global batch under data parallelism: a handful of scalars, so the device
+is never waited on, and the same (seed, step) gives the same batch on any
+device and any number of ranks. A flip that is not drawn is not computed.
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ import torch
 
 from m4depth_tpu_torch import mix_seed
 from m4depth_tpu_torch.data.augment import color_param_ranges
+from m4depth_tpu_torch.parallel.mesh import rank_and_world
 
 Batch = Dict[str, torch.Tensor]
 SEQ_KEYS = ("rgb", "depth", "rot", "trans", "camera_c", "camera_f")
@@ -201,16 +203,23 @@ def make_batch_augment(*, dataset: str, usecase: str = "train",
                        crop_to: Optional[Tuple[int, int]] = None):
     """``batch_augment(batch, seed, step) -> batch``: each sequence of the
     batch augmented with its own generator, seeded from
-    ``(seed, step, index)``. The policy is each adapter's host one
+    ``(seed, step, index)``, the sequence's index in the global batch (the
+    rank times the local batch, plus its index here). The policy is each adapter's host one
     (``datasets.py``): Mid-Air and TartanAir get the geometric transforms
     and inverting color; KITTI color only, no inversion."""
     geometric = dataset in ("midair", "tartanair")
     invert_color = dataset != "kitti-raw"
 
     def batch_augment(batch: Batch, seed: int, step: int) -> Batch:
+        # under data parallelism the batch is this rank's slice of the
+        # global one: a sequence is keyed by its index in the global batch,
+        # so that no two ranks draw the same transforms and the ranks'
+        # slices together are the one-process augmentation of it
+        b = batch["rgb"].shape[0]
+        first = rank_and_world()[0] * b
         outs = []
-        for i in range(batch["rgb"].shape[0]):
-            g = torch.Generator().manual_seed(mix_seed(seed, step, i))
+        for i in range(b):
+            g = torch.Generator().manual_seed(mix_seed(seed, step, first + i))
             seq = {k: batch[k][i] for k in SEQ_KEYS}
             outs.append(augment_sequence(
                 seq, g, usecase=usecase, geometric=geometric,

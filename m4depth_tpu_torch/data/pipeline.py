@@ -24,6 +24,7 @@ from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 import numpy as np
 
 from m4depth_tpu_torch.data.datasets import DatasetAdapter
+from m4depth_tpu_torch.parallel.mesh import host_shard_indices
 
 # the strings pandas reads as NaN by default
 _NA = frozenset(("", "#N/A", "#N/A N/A", "#NA", "-1.#IND", "-1.#QNAN",
@@ -151,6 +152,7 @@ class SequenceDataset:
         seed: int = 42,
         num_workers: int = 8,
         prefetch_batches: int = 2,
+        host_shard: bool = False,
     ):
         self.adapter = adapter
         adapter.set_output_size(out_size, crop=crop)
@@ -174,6 +176,10 @@ class SequenceDataset:
             read_manifest(f) for f in find_trajectory_csvs(records_path)
         ]
         self._build_index()
+        if host_shard:
+            # data parallelism: each rank decodes only its strided share of
+            # the windows (the same count on every rank)
+            self.windows = self.windows[host_shard_indices(len(self.windows))]
 
     # ------------------------------------------------------------------ #
 

@@ -27,6 +27,8 @@ from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from m4depth_tpu_torch.parallel.mesh import host_shard_indices
+
 MAGIC = b"M4R1"
 
 _STORE_DTYPES = {
@@ -212,7 +214,7 @@ class RecordSequenceDataset:
     def __init__(self, store_dir: str, adapter=None, usecase: str = "train",
                  db_seq_len: Optional[int] = None, seq_len: int = 4,
                  batch_size: int = 3, augment: bool = True, seed: int = 42,
-                 num_workers: int = 4):
+                 num_workers: int = 4, host_shard: bool = False):
         self.reader = RecordTrajectoryReader(store_dir)
         self.adapter = adapter
         if (adapter is not None and len(self.reader)
@@ -261,6 +263,10 @@ class RecordSequenceDataset:
         for ti in range(len(self.reader)):
             for bi in range(self.reader.num_frames(ti) // block):
                 self.windows.append((ti, bi * block))
+        if host_shard:
+            # data parallelism: each rank reads only its strided share of
+            # the windows (the same count on every rank)
+            self.windows = self.windows[host_shard_indices(len(self.windows))]
 
     def __len__(self) -> int:
         return len(self.windows) // self.batch_size

@@ -10,6 +10,7 @@ from __future__ import annotations
 from typing import Sequence
 
 import torch
+import torch.distributed as dist
 
 from m4depth_tpu_torch.geometry.resize import resize_bilinear
 
@@ -26,7 +27,7 @@ def _masked_mean(x: torch.Tensor, mask: torch.Tensor, dim=None
 
 
 def m4depth_loss(gt_depth_seq: torch.Tensor, preds: Sequence[Sequence],
-                 depth_type: str = "map") -> torch.Tensor:
+                 depth_type: str = "map", group=None) -> torch.Tensor:
     """Sequence loss over frames 1..T-1 (frame 0 has no temporal context).
 
     Args:
@@ -34,9 +35,17 @@ def m4depth_loss(gt_depth_seq: torch.Tensor, preds: Sequence[Sequence],
         velodyne).
       preds: per frame, the pyramid of level estimates, finest first (each
         has a ``depth`` [b, h, w, 1]).
+      group: under data parallelism, the process group whose ranks each
+        hold a slice of the global batch. The velodyne loss is a masked
+        mean over the whole batch: each rank then divides by the global
+        count of valid pixels (one all-reduce a step, no gradient) times
+        the world size, so that the mean of the ranks' losses and of their
+        gradients, which DDP takes, is the global batch's. The "map" loss
+        is a mean over equal local batches and needs nothing.
     """
     T = gt_depth_seq.shape[1]
     total = torch.zeros((), dtype=torch.float32, device=gt_depth_seq.device)
+    terms = []  # (weight, sum of |error| over valid cells, their count)
     for t in range(1, T):
         gt = gt_depth_seq[:, t].float()
         gt_log = _preprocess(gt)
@@ -56,10 +65,22 @@ def m4depth_loss(gt_depth_seq: torch.Tensor, preds: Sequence[Sequence],
                 gt_resized = _masked_mean(gt_log.reshape(blocks), mask,
                                           dim=(2, 4))
                 valid = (torch.sum(mask, dim=(2, 4)) > 0).float()
-                term = weight * _masked_mean(torch.abs(gt_resized - pd), valid)
+                terms.append((weight,
+                              torch.sum(torch.abs(gt_resized - pd) * valid),
+                              torch.sum(valid)))
             else:
                 gt_resized = resize_bilinear(gt_log, (h, w))
                 term = weight * torch.mean(torch.abs(gt_resized - pd))
+                total = total + term / float(T - 1)
+    if terms:
+        counts = torch.stack([n for _, _, n in terms]).detach()
+        scale = 1.0
+        if group is not None:
+            counts = counts.clone()
+            dist.all_reduce(counts, group=group)
+            scale = float(dist.get_world_size(group))
+        for (weight, err, _), n in zip(terms, counts):
+            term = weight * (scale * err / (n + 1e-12))
             total = total + term / float(T - 1)
     return total
 

@@ -131,10 +131,12 @@ class M4Depth(nn.Module):
             outs.append(pyr)
         return outs
 
-    def loss(self, gt_depth_seq: torch.Tensor,
-             preds: Sequence[Pyramid]) -> torch.Tensor:
-        """The training loss of a window (``losses.m4depth_loss``)."""
-        return m4depth_loss(gt_depth_seq, preds, self.cfg.depth_type)
+    def loss(self, gt_depth_seq: torch.Tensor, preds: Sequence[Pyramid],
+             group=None) -> torch.Tensor:
+        """The training loss of a window (``losses.m4depth_loss``);
+        ``group``, under data parallelism, makes the velodyne loss the
+        global batch's."""
+        return m4depth_loss(gt_depth_seq, preds, self.cfg.depth_type, group)
 
     @staticmethod
     def final_depth(preds: Sequence[Pyramid], hw) -> torch.Tensor:

@@ -245,8 +245,12 @@ class M4DepthV1(nn.Module):
                                         new_traj)
         return state, self.final_depth([pyr], rgb.shape[1:3])
 
-    def loss(self, gt_depth_seq: torch.Tensor,
-             preds: Sequence[V1Pyramid]) -> torch.Tensor:
+    def loss(self, gt_depth_seq: torch.Tensor, preds: Sequence[V1Pyramid],
+             group=None) -> torch.Tensor:
+        """The legacy loss (``m4depth_v1_loss``). It is a plain mean, so
+        under data parallelism (``group``) the mean of equal local batches'
+        losses is already the global batch's."""
+        del group
         return m4depth_v1_loss(gt_depth_seq, preds, self.single_frame)
 
     @staticmethod

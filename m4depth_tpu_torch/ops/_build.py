@@ -137,9 +137,15 @@ class CudaKernel:
             self._fn, self._errstr = fn, errstr
         return self._fn
 
-    def launch(self, *args) -> None:
-        """Call the entry point; raise if it reports a CUDA error."""
-        err = self._load()(*args)
+    def launch(self, *args, device) -> None:
+        """Call the entry point with ``device`` (the inputs' CUDA device) as
+        the current one: the C side launches on the current device, so a
+        launch on tensors of another device would run on the wrong one.
+        Raise if it reports a CUDA error."""
+        import torch
+
+        with torch.cuda.device(device):
+            err = self._load()(*args)
         if err != 0:
             msg = self._errstr(err).decode()
             raise RuntimeError(f"{self.symbol}: CUDA error {err} ({msg})")

@@ -94,7 +94,8 @@ def _dscv_forward(a, bb, para, centre, rot, trans, f, c, search_range: int,
         a.data_ptr(), bb.data_ptr(), para.data_ptr(), centre.data_ptr(),
         rot.data_ptr(), trans.data_ptr(), f.data_ptr(), c.data_ptr(),
         cv.data_ptr(), para_center.data_ptr(), b, h, w, C, num_cuts,
-        search_range, rot.shape[1], _is_bf16(a), _stream(a))
+        search_range, rot.shape[1], _is_bf16(a), _stream(a),
+        device=a.device)
     return cv, para_center
 
 
@@ -117,7 +118,7 @@ def _dscv_backward(a, bb, para, centre, rot, trans, f, c, dcv, dpara_out,
         dcv.data_ptr(), dpara_out.data_ptr(), dc1.data_ptr(), dc2.data_ptr(),
         dcentre.data_ptr(), None if dpara is None else dpara.data_ptr(),
         b, h, w, C, num_cuts, search_range, rot.shape[1], _is_bf16(a),
-        _stream(a))
+        _stream(a), device=a.device)
     return (dc1, dc2.to(bb.dtype),
             None if dpara is None else dpara.to(para.dtype), dcentre)
 

@@ -103,7 +103,7 @@ def _sncv_forward(a: torch.Tensor, bb: torch.Tensor, search_range: int,
     SNCV_KERNEL.launch(
         a.data_ptr(), bb.data_ptr(), out.data_ptr(), b, h, w, a.shape[3],
         num_cuts, search_range, float(leaky_slope), _is_bf16(a),
-        _stream(a))
+        _stream(a), device=a.device)
     return out
 
 
@@ -123,7 +123,7 @@ def _sncv_backward(grad: torch.Tensor, a: torch.Tensor, bb: torch.Tensor,
         g.data_ptr(), out.data_ptr(), a.data_ptr(), bb.data_ptr(),
         dc1.data_ptr(), None if same else dc2.data_ptr(), b, h, w, C,
         num_cuts, search_range, int(same), float(leaky_slope), _is_bf16(a),
-        _stream(a))
+        _stream(a), device=a.device)
     return dc1, dc2
 
 

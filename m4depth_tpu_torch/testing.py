@@ -9,11 +9,15 @@ to print.
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
+from m4depth_tpu_torch.config import ModelConfig, TrainConfig
 from m4depth_tpu_torch.geometry import Camera, parallax_sweep_flows
+from m4depth_tpu_torch.models import M4Depth
+from m4depth_tpu_torch.train import make_optimizer, make_train_step
 
 # Forward kernels against their plain versions. Both sides round their
 # inputs to the same dtype and multiply and add in float32.
@@ -36,6 +40,17 @@ DSCV_PARA_TOL = dict(rtol=1e-4, atol=5e-4)
 # conditioned (no parallax near zero), so op-level float32 differences of
 # ~1e-4 stay ~1e-4 in depth.
 MODEL_TOL = dict(rtol=1e-3, atol=1e-4)
+
+# The model's depth in bfloat16 against another run of the same weights on
+# the same frames whose convs may take other cuDNN algorithms (a batch of
+# streams against each stream alone): a conv summed in another order rounds
+# its bfloat16 output to a neighbour, one ulp (2^-8 of the value) apart,
+# and the ~70 convs and cost volumes of a d6 frame, and the recurrence over
+# frames, compound such steps. So half the pixels within 2^-6 (four ulps)
+# and 99% within 2^-3 of their own depth; a stream read in another
+# stream's place (each has its own motion, so its own depth scale) misses
+# both.
+BF16_DEPTH_MEDIAN_RTOL, BF16_DEPTH_P99_RTOL = 2.0 ** -6, 2.0 ** -3
 
 # The evaluator's metrics accumulated on the card against the CPU's
 # accumulation of the same depths (the card's, copied): the same float32
@@ -93,6 +108,21 @@ def _require(ok: bool, what: str) -> None:
 
 def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return (a.float() - b.float()).abs().max().item()
+
+
+def assert_bf16_depth_close(got: torch.Tensor, want: torch.Tensor,
+                            what: str) -> Tuple[float, float]:
+    """bfloat16-compute depth ``got`` against ``want`` under the rule
+    above; returns the median and 99th-percentile relative error."""
+    rel = ((got.float() - want.float()).abs()
+           / want.float().abs().clamp(min=1e-6)).flatten().double()
+    _require(bool(torch.isfinite(got).all()), f"{what}: depth not finite")
+    med = rel.median().item()
+    p99 = torch.quantile(rel, 0.99).item()
+    _require(med <= BF16_DEPTH_MEDIAN_RTOL and p99 <= BF16_DEPTH_P99_RTOL,
+             f"{what}: relative error median {med:.3e}, 99th percentile "
+             f"{p99:.3e}")
+    return med, p99
 
 
 def assert_grad_close(got: torch.Tensor, ref: torch.Tensor,
@@ -203,3 +233,46 @@ def assert_train_step_close(grads: Dict[str, torch.Tensor],
     shares = dict(sorted(shares.items(), key=lambda kv: -kv[1]))
     return dict(top=top, shares=shares, rel=rel, small_leaves=small,
                 worst_param=worst_param)
+
+
+def train_batch(b: int, T: int, hw: int, seed: int, rot, trans,
+                dev) -> Dict[str, torch.Tensor]:
+    """A training window made with numpy from a seed: frames in [0, 1],
+    depth 1 + 60 U, one motion for every frame, f = c = hw / 2."""
+    rng = np.random.RandomState(seed)
+    batch = {
+        "rgb": rng.rand(b, T, hw, hw, 3).astype(np.float32),
+        "depth": (1.0 + 60 * rng.rand(b, T, hw, hw, 1)).astype(np.float32),
+        "rot": np.tile(np.asarray(rot, np.float32), (b, T, 1)),
+        "trans": np.tile(np.asarray(trans, np.float32), (b, T, 1)),
+        "camera_f": np.full((b, 2), hw / 2.0, np.float32),
+        "camera_c": np.full((b, 2), hw / 2.0, np.float32),
+    }
+    return {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+
+
+def float32_step(dev, batch: Dict[str, torch.Tensor], seed: int, lr: float,
+                 wrap: Optional[Callable] = None) -> dict:
+    """One float32 training step of the d6 model from ``seed``'s weights
+    on ``batch`` (through ``wrap(model)`` when given, such as
+    ``train.data_parallel``), Adam at ``lr``: its scalars, each
+    parameter's gradient and the parameters after the update, on the
+    CPU."""
+    model = M4Depth(ModelConfig(compute_dtype="float32", cv_dtype="float32"),
+                    device=dev, seed=seed)
+    opt = make_optimizer(model, TrainConfig(learning_rate=lr))
+    out = make_train_step(model if wrap is None else wrap(model), opt)(batch)
+    return dict(scalars={k: v.item() for k, v in out.items()},
+                grads={n: p.grad.cpu() for n, p in model.named_parameters()},
+                params={n: p.detach().cpu()
+                        for n, p in model.named_parameters()})
+
+
+def assert_step_close(got: dict, ref: dict, lr: float, what: str) -> dict:
+    """Two ``float32_step`` results: the loss to STEP_LOSS_RTOL, then
+    ``assert_train_step_close``, whose result it returns."""
+    loss, ref_loss = got["scalars"]["loss"], ref["scalars"]["loss"]
+    _require(abs(loss - ref_loss) <= STEP_LOSS_RTOL * abs(ref_loss),
+             f"{what}: loss {loss} against {ref_loss}")
+    return assert_train_step_close(got["grads"], ref["grads"], got["params"],
+                                   ref["params"], lr)

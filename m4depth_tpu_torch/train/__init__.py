@@ -6,6 +6,7 @@ from m4depth_tpu_torch.train.step import (
     TrainState,
     batch_camera,
     create_train_state,
+    data_parallel,
     make_lr_schedule,
     make_optimizer,
     make_streaming_eval_step,
@@ -15,7 +16,7 @@ from m4depth_tpu_torch.train.step import (
 
 __all__ = [
     "Batch", "Optimizer", "TrainState", "batch_camera", "create_train_state",
-    "make_lr_schedule",
+    "data_parallel", "make_lr_schedule",
     "make_optimizer", "make_streaming_eval_step", "make_train_step",
     "make_windowed_eval_step",
 ]

@@ -10,6 +10,12 @@ Counterpart of ``m4depth_tpu/train/loop.py::fit``.
 The batches of a numpy dataset reach the device from pinned host memory
 with ``non_blocking=True``; a dataset that yields tensors already on the
 model's device (``DeviceSyntheticStream``) is used as it is.
+
+Under a process group ``fit`` trains data parallel over ``mesh``: each
+rank steps on its own slice of the global batch (the dataset's
+``host_shard``), every rank resumes from the same checkpoint directory,
+rank 0 alone writes checkpoints and logs and runs validation, and the
+others wait at a barrier after each epoch's save.
 """
 
 from __future__ import annotations
@@ -23,14 +29,20 @@ from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from m4depth_tpu_torch.config import TrainConfig
 from m4depth_tpu_torch.models import M4Depth
+from m4depth_tpu_torch.parallel.mesh import rank_and_world
 from m4depth_tpu_torch.train.checkpoints import (
     BestCheckpointManager,
     TrainCheckpointManager,
 )
-from m4depth_tpu_torch.train.step import create_train_state, make_train_step
+from m4depth_tpu_torch.train.step import (
+    create_train_state,
+    data_parallel,
+    make_train_step,
+)
 from m4depth_tpu_torch.utils.logging import MetricLogger
 
 
@@ -101,14 +113,27 @@ def fit(
     nan_check_every: int = 25,
     log_every: Optional[int] = None,
     augment_fn: Optional[Callable] = None,
+    mesh=None,
 ):
     """Train to ``total_steps`` optimizer steps (the reference's semantics:
     epochs = total_steps // len(dataset)).
 
+    With ``mesh`` (``parallel.make_mesh``) the step runs through
+    ``data_parallel``: ``dataset`` then yields this rank's share of each
+    global batch, and ``len(dataset)`` must be the same on every rank. A
+    process group of more than one rank needs a mesh.
+
     Returns the final ``TrainState``. Raises ``NaNStop`` on a non-finite
-    loss without saving the poisoned state, and ``OutOfMemory`` when the
-    device runs out of memory.
+    loss without saving the poisoned state (on every rank at the same
+    step: the tripwire reads the loss averaged over the ranks), and
+    ``OutOfMemory`` when the device runs out of memory.
     """
+    rank, world = rank_and_world()
+    if world > 1 and mesh is None:
+        raise ValueError(f"fit under a process group of {world} ranks "
+                         "needs mesh= (parallel.make_mesh()) to train data "
+                         "parallel")
+    main = rank == 0
     total_steps = total_steps or cfg.total_steps
     steps_per_epoch = len(dataset)
     if steps_per_epoch == 0:
@@ -122,7 +147,7 @@ def fit(
     epoch0_gen = dataset.batches(0)
     sample = next(epoch0_gen)
     epoch0 = itertools.chain([sample], epoch0_gen)
-    logger = MetricLogger(cfg.log_dir)
+    logger = MetricLogger(cfg.log_dir if main else None)
     state = create_train_state(
         model, dataclasses.replace(cfg, total_steps=total_steps))
 
@@ -132,7 +157,8 @@ def fit(
     if resume:
         start_epoch = ckpt_mgr.resume_epoch
         if start_epoch > 0:
-            print(f"Resuming from epoch {start_epoch}")
+            if main:
+                print(f"Resuming from epoch {start_epoch}")
             ckpt_mgr.restore_latest(state)
             epoch0_gen.close()  # resume skips epoch 0: stop its workers
 
@@ -142,10 +168,13 @@ def fit(
             ckpt_mgr.directory, os.path.join(cfg.ckpt_dir, "best"),
             keep_top_n=cfg.keep_top_n)
 
-    step = make_train_step(model, state.optimizer,
-                           with_images=bool(cfg.log_dir),
-                           augment_fn=augment_fn, augment_seed=cfg.seed)
-    meter = ThroughputMeter(dataset.batch_size * sample["rgb"].shape[1])
+    step = make_train_step(
+        data_parallel(model, mesh) if mesh is not None else model,
+        state.optimizer, with_images=bool(cfg.log_dir) and main,
+        augment_fn=augment_fn, augment_seed=cfg.seed)
+    # images of the global batch a step
+    meter = ThroughputMeter(dataset.batch_size * sample["rgb"].shape[1]
+                            * world)
     log_every = log_every or cfg.summary_interval
 
     step_idx = start_epoch * steps_per_epoch
@@ -179,7 +208,7 @@ def fit(
                 meter.tick(now - t_last)
                 t_last = now
                 last_scalars = scalars
-                if step_idx % log_every == 0:
+                if main and step_idx % log_every == 0:
                     images = scalars.pop("images", None)
                     vals = {k: float(v) for k, v in scalars.items()}
                     vals.update(meter.report())
@@ -198,19 +227,26 @@ def fit(
             if last_scalars is not None and \
                     not np.isfinite(float(last_scalars["loss"])):
                 raise NaNStop(f"non-finite loss at end of epoch {epoch}")
-            ckpt_mgr.save(epoch, state)
-            report = meter.report()
-            logger.log_scalars(step_idx, report, prefix="epoch/")
-            print(f"epoch {epoch} done in {time.perf_counter() - t_epoch:.1f}"
-                  f"s; step ms median {report['step_ms_median']:.3f} "
-                  "(this run's steps after its first); checkpoint saved",
-                  flush=True)
+            if main:
+                ckpt_mgr.save(epoch, state)
+                report = meter.report()
+                logger.log_scalars(step_idx, report, prefix="epoch/")
+                print(f"epoch {epoch} done in "
+                      f"{time.perf_counter() - t_epoch:.1f}s; step ms median "
+                      f"{report['step_ms_median']:.3f} (this run's steps "
+                      "after its first); checkpoint saved", flush=True)
 
-            if validation_fn is not None:
-                perfs = validation_fn(model)
-                if perfs is not None:  # None => validation in a subprocess
-                    logger.log_scalars(step_idx, perfs, prefix="val/")
-                    best_mgr.update(epoch, perfs, state)
+                if validation_fn is not None:
+                    perfs = validation_fn(model)
+                    if perfs is not None:  # None => in a subprocess
+                        logger.log_scalars(step_idx, perfs, prefix="val/")
+                        best_mgr.update(epoch, perfs, state)
+            if world > 1:
+                # the others wait for rank 0's save (and validation)
+                if dist.get_backend() == "nccl":
+                    dist.barrier(device_ids=[device.index])
+                else:
+                    dist.barrier()
     except torch.OutOfMemoryError as e:
         # an asynchronous launch can surface the device's out-of-memory at
         # any later synchronising read (the tripwire's float, a log, the

@@ -22,6 +22,7 @@ import math
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from m4depth_tpu_torch.config import TrainConfig
 from m4depth_tpu_torch.geometry import Camera, reproject
@@ -203,6 +204,23 @@ def _summary_images(batch: Batch, preds, camera: Camera
     return {k: v.detach() for k, v in images.items()}
 
 
+def data_parallel(model: M4Depth, mesh):
+    """``model`` wrapped in ``DistributedDataParallel`` over ``mesh``'s
+    data group: rank 0's weights are broadcast to every rank when it is
+    built, and each backward all-reduces (averages) the gradients, bucket
+    by bucket, as the ranks' gradients come. Every parameter gets a
+    gradient in every step (the cost volumes carry the gradient to the
+    encoder), so ``find_unused_parameters`` is off. Counterpart of the JAX
+    package's ``jit_data_parallel``; ``make_train_step`` takes the
+    wrapper."""
+    from torch.nn.parallel import DistributedDataParallel
+
+    from m4depth_tpu_torch.parallel.mesh import data_group
+
+    return DistributedDataParallel(model, process_group=data_group(mesh),
+                                   find_unused_parameters=False)
+
+
 def make_train_step(
     model: M4Depth,
     optimizer: Optimizer,
@@ -222,21 +240,39 @@ def make_train_step(
     ``augment_fn(batch, seed, step)`` (``data.augment_device``), when
     given, augments the batch inside the step, keyed by ``augment_seed``
     and the optimiser's count of updates.
+
+    ``model`` may be the ``data_parallel`` wrapper: the forward then runs
+    through it (its backward all-reduces the gradients, so ``grad_norm`` is
+    the global one), the loss through the wrapped model's, over the global
+    batch (``losses.m4depth_loss``'s ``group``), and ``loss`` and
+    ``RMSE_log`` are the means of the ranks' values (for the loss, the
+    global batch's). Every rank gets the same scalars, so every rank's NaN
+    tripwire stops at the same step.
     """
+    from torch.nn.parallel import DistributedDataParallel
+
+    ddp = isinstance(model, DistributedDataParallel)
+    core = model.module if ddp else model
+    group = model.process_group if ddp else None
 
     def train_step(batch: Batch) -> Dict[str, torch.Tensor]:
         if augment_fn is not None:
             batch = augment_fn(batch, augment_seed, optimizer.count)
         camera = batch_camera(batch)
         preds = model(batch["rgb"], batch["rot"], batch["trans"], camera)
-        loss = model.loss(batch["depth"], preds)
+        loss = core.loss(batch["depth"], preds, group=group)
         optimizer.adam.zero_grad(set_to_none=True)
         loss.backward()
         grad_norm = optimizer.apply_gradients()
         with torch.no_grad():
             gt = batch["depth"][:, -1]
-            rmse = _rmse_log(gt, model.final_depth(preds, gt.shape[1:3]))
-            out = {"loss": loss.detach(), "RMSE_log": rmse,
+            rmse = _rmse_log(gt, core.final_depth(preds, gt.shape[1:3]))
+            loss = loss.detach()
+            if ddp:
+                both = torch.stack([loss, rmse.float()])
+                dist.all_reduce(both, group=group)
+                loss, rmse = both / dist.get_world_size(group)
+            out = {"loss": loss, "RMSE_log": rmse,
                    "grad_norm": grad_norm}
             if with_images:
                 out["images"] = _summary_images(batch, preds, camera)

@@ -254,7 +254,7 @@ def test_subprocess_validator_is_single_in_flight():
     # ported: runs, and prints no "changes nothing" line
     ("--remat", None),
     ("--save_interval=5", "reads it nowhere"),
-    ("--data_mesh=4", NotImplementedError),
+    ("--data_mesh=4", ValueError),
     ("--model=m4depth-v1", None),
 ])
 def test_tpu_flags_are_accepted_and_unported_ones_raise(env, tmp_path, flag,

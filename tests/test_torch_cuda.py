@@ -536,3 +536,114 @@ def test_augment_device_on_card_matches_cpu(cuda):
             for k, v in out["cpu"].items():
                 torch.testing.assert_close(out[cuda][k].cpu(), v, rtol=1e-5,
                                            atol=1e-6, msg=lambda m: f"{k}: {m}")
+
+
+# -- parallel serving ----------------------------------------------------
+
+D4_NARROW = dict(num_levels=4, encoder_channels=(8, 12, 16, 16),
+                 refiner_prep_channels=(16, 16, 8),
+                 refiner_est_channels=(8, 8, 5),
+                 compute_dtype="float32", cv_dtype="float32")
+
+
+def _stream_frames(n, hw, frames, seed):
+    """``frames`` frames of ``n`` streams, mostly lateral motion scaled a
+    stream (each stream its own depth scale)."""
+    rng = np.random.RandomState(seed)
+    rgb = rng.rand(frames, n, hw, hw, 3).astype(np.float32)
+    rot = np.tile(np.array([1.0, 0.001, -0.002, 0.001], np.float32), (n, 1))
+    trans = (np.array([0.3, 0.1, 0.02], np.float32)
+             * (1 + np.arange(n, dtype=np.float32) / 4)[:, None])
+    f = np.full((n, 2), hw / 2, np.float32)
+    return rgb, rot, trans, f
+
+
+def test_fresh_frame_stream_on_card_matches_sequential(cuda):
+    """Frames pushed from numpy through the pinned buffers and the side
+    stream: each depth, one push late, equals the sequential step's on
+    the same frames (the same kernels on the same bytes)."""
+    from m4depth_tpu_torch.parallel import FreshFrameStream
+
+    cfg = ModelConfig(**D4_NARROW)
+    b, hw, frames = 2, 64, 5
+    rgb, rot, trans, f = _stream_frames(b, hw, frames, seed=9)
+    model = M4Depth(cfg, device=cuda, seed=4)
+    state = init_state(cfg, b, hw, hw, device=cuda)
+    want = []
+    for t in range(frames):
+        state, depth = model.step(
+            state, torch.from_numpy(rgb[t]).to(cuda),
+            torch.from_numpy(rot).to(cuda), torch.from_numpy(trans).to(cuda),
+            Camera(torch.from_numpy(f).to(cuda), torch.from_numpy(f).to(cuda)),
+            torch.full((b,), t == 0, device=cuda))
+        want.append(depth)
+    sess = FreshFrameStream(model, init_state(cfg, b, hw, hw, device=cuda),
+                            device=cuda)
+    got = [sess.push(rgb[t], rot, trans, Camera(f, f.copy()),
+                     np.full((b,), t == 0)) for t in range(frames)]
+    got.append(sess.flush())
+    assert got[0] is None and sess.flush() is None
+    for t in range(frames):
+        assert got[t + 1].device == want[t].device
+        assert torch.equal(got[t + 1], want[t]), t
+
+
+def test_sharded_stream_on_card_matches_single_streams(cuda):
+    """4 streams batched on the card against each stream alone at b=1,
+    float32: batched cuDNN may take other algorithms, so the model's
+    card tolerance."""
+    from m4depth_tpu_torch.parallel import shard_stream_inputs, sharded_stream
+
+    cfg = ModelConfig(**D4_NARROW)
+    n, hw, frames = 4, 64, 3
+    rgb, rot, trans, f = _stream_frames(n, hw, frames, seed=10)
+    model = M4Depth(cfg, device=cuda, seed=5)
+    step = sharded_stream(model, [cuda])
+    state = shard_stream_inputs(init_state(cfg, n, hw, hw, device=cuda),
+                                [cuda])
+    alone = [init_state(cfg, 1, hw, hw, device=cuda) for _ in range(n)]
+    def dev(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(cuda)
+
+    for t in range(frames):
+        reset = torch.full((n,), t == 0, device=cuda)
+        before = (SNCV_KERNEL.launches, DSCV_KERNEL.launches)
+        state, depth = step(state, dev(rgb[t]), dev(rot), dev(trans),
+                            Camera(dev(f), dev(f)), reset)
+        # one launch of each kernel a level, whatever the number of streams
+        assert (SNCV_KERNEL.launches - before[0],
+                DSCV_KERNEL.launches - before[1]) == (4, 4)
+        for i in range(n):
+            s = slice(i, i + 1)
+            alone[i], d1 = model.step(
+                alone[i], dev(rgb[t, s]), dev(rot[s]), dev(trans[s]),
+                Camera(dev(f[s]), dev(f[s])), reset[s])
+            torch.testing.assert_close(depth[s], d1, **MODEL_TOL)
+
+
+def test_kernels_launch_on_their_inputs_device(cuda):
+    """With cuda:0 current, each kernel on tensors of cuda:1 matches its
+    plain version there: the C side launches on the current device, so the
+    wrapper makes the inputs' device current (two replicas of
+    ``sharded_stream`` in one process run so)."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    other = torch.device("cuda", 1)
+    rng = np.random.RandomState(11)
+    a, bb = (torch.from_numpy(norm_cuts(rng.randn(1, 24, 24, 16), 2)).to(
+        other) for _ in range(2))
+    c1, c2, para, centre, rot, trans, f, c = (
+        torch.from_numpy(x).to(other)
+        for x in dscv_inputs(b=1, h=24, w=24, C=16, cuts=2))
+    with torch.cuda.device(0):
+        got = spatial_cost_volume_fused(a, bb, 3, 2, torch.float32)
+        cv, pc = parallax_sweeping_cv_fused(c1, c2, para, centre, rot, trans,
+                                            Camera(f, c), 4, 2,
+                                            torch.float32)
+    assert got.device == cv.device == other
+    torch.testing.assert_close(
+        got, spatial_cost_volume(a, bb, 3, 2, torch.float32), **SNCV_TOL)
+    ref_cv, ref_pc = parallax_sweeping_cv(c1, c2, para, centre, rot, trans,
+                                          Camera(f, c), 4, 2, torch.float32)
+    torch.testing.assert_close(cv, ref_cv, **DSCV_CV_TOL)
+    torch.testing.assert_close(pc, ref_pc, **DSCV_PARA_TOL)
