@@ -13,12 +13,13 @@ exits non-zero and prints no result line:
    versions, the kernels' build time and ``ptxas`` resource use;
 2. each forward kernel against its plain PyTorch version on the card, at
    the six decoder-level shapes of the d6 model at 384x384 (b=1), in
-   float32 and in bfloat16; and the V1 model's SNCV (a 9x9 cross-
+   float32, bfloat16 and float16; and the V1 model's SNCV (a 9x9 cross-
    correlation of one cut, c1 != c2) at the same six shapes, b=1 and b=3;
-3. each backward kernel against autograd of the plain forward, at the six
-   level shapes with b=3 (the training batch), float32 and bfloat16, for
-   every input gradient; and V1's SNCV backward (two gradients) at b=1
-   and b=3;
+3. each backward kernel against its plain version (the SNCV's on the
+   kernel forward's output, the DSCV's autograd of the plain forward), at
+   the six level shapes with b=3 (the training batch), in the three
+   dtypes, for every input gradient; and V1's SNCV backward (two
+   gradients) at b=1 and b=3;
 4. the d6 model at 128x128 (b=2, 3 frames, one per-element reset) on the
    card (kernels) against the same weights on the CPU (plain versions),
    in float32, on the card once with cuDNN and once without it;
@@ -86,8 +87,25 @@ exits non-zero and prints no result line:
    on the one card over gloo (``torch.multiprocessing.spawn``), a float32
    step against one process on the global batch and timed bf16 steps;
    the CLI's train mode under ``python -m torch.distributed.run``;
-16. one JSON line listing the four kernels, then the result line
-   ``{"ok": true, "device": {...}}``.
+16. float16 cost volumes: the JAX package's extreme-parallax input (1e6)
+   through the DSCV kernel, finite and saturated at 65504; streaming
+   ``M4Depth.step`` (with a profile) and ``M4DepthV1.step`` and both
+   training steps with ``cv_dtype="float16"``, each path's launches
+   counted; each kernel's float16 device time per frame and per step (as
+   phases 9 and 10); phase 11 also runs the CLI's eval mode of both
+   families at ``--cv_dtype=float16``;
+17. ``utils.profiling.compiled_cost`` of one serving frame and one training
+   step: flops and bytes accessed, the convolutions' flops held against
+   the count from the layer shapes;
+18. ``m4depth_tpu_torch.native``: built with g++ on this host, held against
+   the plain warp and its autograd gradient, timed;
+19. the port's tools at reduced counts: ``memory_footprint``, ``fps --n 50
+   --profile``, ``train_prof --steps 3``, ``io_bench`` (record store), and
+   ``rehearsal`` for 2 epochs of 10 steps, then relaunched to 30 steps
+   (resume and extension);
+20. one JSON line listing the kernels (the four, then their float16
+   instantiations), then the result line ``{"ok": true, "device":
+   {...}}``.
 
 Without a CUDA device it exits with code 2 before running anything.
 """
@@ -124,13 +142,14 @@ from m4depth_tpu_torch.models import (
 from m4depth_tpu_torch.ops import (
     KERNELS,
     _build,
+    cost,
     parallax_sweeping_cv,
     parallax_sweeping_cv_fused,
     spatial_cost_volume,
     spatial_cost_volume_fused,
 )
 from m4depth_tpu_torch.ops.cost_volume import _dscv_backward
-from m4depth_tpu_torch.ops.sncv import _sncv_backward
+from m4depth_tpu_torch.ops.sncv import KERNEL_DTYPES, _sncv_backward
 from m4depth_tpu_torch.testing import (
     DSCV_CV_TOL,
     DSCV_PARA_TOL,
@@ -143,10 +162,12 @@ from m4depth_tpu_torch.testing import (
     assert_train_step_close,
     float32_step,
     max_abs_err,
+    sncv_plain_grads,
     tie_free_pixels,
     train_batch,
 )
 from m4depth_tpu_torch.train import make_optimizer, make_train_step
+from m4depth_tpu_torch.utils.profiling import compiled_cost
 
 FORWARD = ("sncv_forward", "dscv_forward")
 BACKWARD = ("sncv_backward", "dscv_backward")
@@ -290,6 +311,16 @@ def op_inputs(spec, dev, seed: int, sncv_radius: int = SPATIAL_SEARCH):
     return {k: v.to(dev).contiguous() for k, v in out.items()}
 
 
+def err_key(kernel: str, dtype) -> str:
+    """Where a kernel's largest error is kept: float16's apart, for the
+    float16 entries of the kernels line."""
+    return f"{kernel}[float16]" if dtype == torch.float16 else kernel
+
+
+def dtype_name(dtype) -> str:
+    return str(dtype).replace("torch.", "")
+
+
 def dscv_args(x, dtype, rot=None):
     return (x["c1"].to(dtype), x["c2"].to(dtype), x["para"], x["centre"],
             x["rot"] if rot is None else rot, x["trans"],
@@ -301,14 +332,14 @@ def dscv_args(x, dtype, rot=None):
 
 def forwards_vs_plain(cfg: ModelConfig, dev, b: int) -> dict:
     """M4Depth's two forward kernels against their plain versions at every
-    level shape at batch b, in float32 and bfloat16; returns the largest
-    error seen per kernel."""
-    worst = dict.fromkeys(FORWARD, 0.0)
+    level shape at batch b, in float32, bfloat16 and float16; returns the
+    largest error seen per kernel (``err_key``)."""
+    worst = {err_key(k, d): 0.0 for k in FORWARD for d in KERNEL_DTYPES}
     for spec in level_specs(cfg, b):
         level, h, w, C, cuts = spec[:5]
         x = op_inputs(spec, dev, seed=level)
-        for dtype in (torch.float32, torch.bfloat16):
-            name = str(dtype).replace("torch.", "")
+        for dtype in KERNEL_DTYPES:
+            name = dtype_name(dtype)
             c1, c2 = x["c1"].to(dtype), x["c2"].to(dtype)
             errs = []
             # the model's autocorrelation, and a cross-correlation
@@ -321,7 +352,8 @@ def forwards_vs_plain(cfg: ModelConfig, dev, b: int) -> dict:
                 check(out.shape == (b, h, w, 49 * cuts), f"sncv {out.shape}")
                 torch.testing.assert_close(out, ref, **SNCV_TOL)
                 errs.append(max_abs_err(out, ref))
-            worst["sncv_forward"] = max(worst["sncv_forward"], *errs)
+            sk = err_key("sncv_forward", dtype)
+            worst[sk] = max(worst[sk], *errs)
             # the main path's quaternion, and the small-angle form
             d_errs = []
             for rot in (x["rot"], x["rot"][:, 1:]):
@@ -336,8 +368,8 @@ def forwards_vs_plain(cfg: ModelConfig, dev, b: int) -> dict:
                 torch.testing.assert_close(para, para_ref, **DSCV_PARA_TOL)
                 d_errs.append((max_abs_err(cv, cv_ref),
                                max_abs_err(para, para_ref)))
-            worst["dscv_forward"] = max(worst["dscv_forward"],
-                                        *(e for p in d_errs for e in p))
+            dk = err_key("dscv_forward", dtype)
+            worst[dk] = max(worst[dk], *(e for p in d_errs for e in p))
             log(f"  level {level} b={b} {h}x{w} C={C} cuts={cuts} {name}: "
                 f"sncv max|err| {errs[0]:.3e} (c1 is c2), {errs[1]:.3e} "
                 f"(c1 != c2); dscv cv, parallax max|err| "
@@ -348,7 +380,8 @@ def forwards_vs_plain(cfg: ModelConfig, dev, b: int) -> dict:
 
 def phase_kernels_vs_plain(cfg: ModelConfig, dev) -> dict:
     """Each kernel against its plain version at every level shape, in
-    float32 and bfloat16; returns the largest error seen per kernel."""
+    float32, bfloat16 and float16; returns the largest error seen per
+    kernel (``err_key``)."""
     worst = forwards_vs_plain(cfg, dev, 1)
     # V1: radius 4, one cut, the current features against the warped ones
     for b in (1, TRAIN_B):
@@ -356,7 +389,7 @@ def phase_kernels_vs_plain(cfg: ModelConfig, dev) -> dict:
             level, h, w, C = spec[:4]
             x = op_inputs(spec, dev, seed=level, sncv_radius=V1_SEARCH)
             errs = []
-            for dtype in (torch.float32, torch.bfloat16):
+            for dtype in KERNEL_DTYPES:
                 c1, c2 = x["c1"].to(dtype), x["c2"].to(dtype)
                 out = spatial_cost_volume_fused(c1, c2, V1_SEARCH, 1, dtype,
                                                 LEAKY)
@@ -365,10 +398,11 @@ def phase_kernels_vs_plain(cfg: ModelConfig, dev) -> dict:
                 check(out.shape == (b, h, w, 81), f"v1 sncv {out.shape}")
                 torch.testing.assert_close(out, ref, **SNCV_TOL)
                 errs.append(max_abs_err(out, ref))
-            worst["sncv_forward"] = max(worst["sncv_forward"], *errs)
+                sk = err_key("sncv_forward", dtype)
+                worst[sk] = max(worst[sk], errs[-1])
             log(f"  V1 level {level} b={b} {h}x{w} C={C} r={V1_SEARCH} "
                 f"cuts=1 c1 != c2: sncv max|err| {errs[0]:.3e} (float32), "
-                f"{errs[1]:.3e} (bfloat16)")
+                f"{errs[1]:.3e} (bfloat16), {errs[2]:.3e} (float16)")
     return worst
 
 
@@ -376,29 +410,34 @@ def phase_kernels_vs_plain(cfg: ModelConfig, dev) -> dict:
 
 
 def phase_backward_vs_plain(cfg: ModelConfig, dev) -> dict:
-    """Each backward kernel (through its autograd Function) against
-    autograd of the plain forward, at every level shape with b=3, in
-    float32 and bfloat16, for every input gradient; returns the largest
-    error per kernel."""
-    worst = dict.fromkeys(BACKWARD, 0.0)
+    """Each backward kernel (through its autograd Function) against its
+    plain version (the SNCV's: ``sncv_plain_grads`` on the kernel
+    forward's output; the DSCV's: autograd of the plain forward), at every
+    level shape with b=3, in float32, bfloat16 and float16, for every input
+    gradient; returns the largest error per kernel (``err_key``)."""
+    worst = {err_key(k, d): 0.0 for k in BACKWARD for d in KERNEL_DTYPES}
     for spec in level_specs(cfg, TRAIN_B):
         level, h, w, C, cuts = spec[:5]
         x = op_inputs(spec, dev, seed=100 + level)
-        for dtype in (torch.float32, torch.bfloat16):
-            name = str(dtype).replace("torch.", "")
+        for dtype in KERNEL_DTYPES:
+            name = dtype_name(dtype)
             line = []
             for same in (True, False):
                 grads = []
-                for fn in (spatial_cost_volume_fused, spatial_cost_volume):
-                    a = x["c1"].to(dtype).requires_grad_()
-                    b = a if same else x["c2"].to(dtype).requires_grad_()
-                    ins = [a] if same else [a, b]
-                    out = fn(a, b, SPATIAL_SEARCH, cuts, dtype, LEAKY)
-                    grads.append(torch.autograd.grad(out, ins, x["g_sncv"]))
+                a = x["c1"].to(dtype).requires_grad_()
+                b = a if same else x["c2"].to(dtype).requires_grad_()
+                out = spatial_cost_volume_fused(a, b, SPATIAL_SEARCH, cuts,
+                                                dtype, LEAKY)
+                grads.append(torch.autograd.grad(
+                    out, [a] if same else [a, b], x["g_sncv"]))
+                grads.append(sncv_plain_grads(
+                    a, b, SPATIAL_SEARCH, cuts, dtype, x["g_sncv"],
+                    out.detach(), LEAKY))
                 torch.cuda.synchronize()
                 errs = assert_sncv_grads_close(*grads, dtype, same,
                                                f"sncv {name}")
-                worst["sncv_backward"] = max(worst["sncv_backward"], *errs)
+                sk = err_key("sncv_backward", dtype)
+                worst[sk] = max(worst[sk], *errs)
                 line.append(f"sncv {'c1 is c2' if same else 'c1 != c2'} "
                             + ", ".join(f"{e:.3e}" for e in errs))
             for rot_name, rot in (("quaternion", x["rot"]),
@@ -420,7 +459,8 @@ def phase_backward_vs_plain(cfg: ModelConfig, dev) -> dict:
                       f"level {level}: too many DSCV samples near ties")
                 errs = assert_dscv_grads_close(*grads, dtype, mask,
                                                f"dscv {name}")
-                worst["dscv_backward"] = max(worst["dscv_backward"], *errs)
+                dk = err_key("dscv_backward", dtype)
+                worst[dk] = max(worst[dk], *errs)
                 line.append(f"dscv {rot_name} " + ", ".join(
                     f"{e:.3e}" for e in errs) + f" ({int((~mask).sum())} "
                     "tie pixels left out of dcentre)")
@@ -432,17 +472,19 @@ def phase_backward_vs_plain(cfg: ModelConfig, dev) -> dict:
             level, h, w, C = spec[:4]
             x = op_inputs(spec, dev, seed=200 + level, sncv_radius=V1_SEARCH)
             line = []
-            for dtype in (torch.float32, torch.bfloat16):
-                grads = []
-                for fn in (spatial_cost_volume_fused, spatial_cost_volume):
-                    ins = [x["c1"].to(dtype).requires_grad_(),
-                           x["c2"].to(dtype).requires_grad_()]
-                    out = fn(*ins, V1_SEARCH, 1, dtype, LEAKY)
-                    grads.append(torch.autograd.grad(out, ins, x["g_sncv"]))
+            for dtype in KERNEL_DTYPES:
+                ins = [x["c1"].to(dtype).requires_grad_(),
+                       x["c2"].to(dtype).requires_grad_()]
+                out = spatial_cost_volume_fused(*ins, V1_SEARCH, 1, dtype,
+                                                LEAKY)
+                grads = [torch.autograd.grad(out, ins, x["g_sncv"]),
+                         sncv_plain_grads(*ins, V1_SEARCH, 1, dtype,
+                                          x["g_sncv"], out.detach(), LEAKY)]
                 torch.cuda.synchronize()
                 errs = assert_sncv_grads_close(*grads, dtype, False,
                                                f"v1 sncv {dtype}")
-                worst["sncv_backward"] = max(worst["sncv_backward"], *errs)
+                sk = err_key("sncv_backward", dtype)
+                worst[sk] = max(worst[sk], *errs)
                 line.append(f"{str(dtype)[6:]} " + ", ".join(
                     f"{e:.3e}" for e in errs))
             log(f"  V1 level {level} b={b} {h}x{w} C={C} r={V1_SEARCH} "
@@ -648,17 +690,19 @@ def zero_launch_counts() -> None:
         kern.launches = 0
 
 
-def phase_main_path(dev, family=M4Depth, per_frame=None):
-    """Streaming d6 384x384 bf16 of ``family``, whose frame launches
-    ``per_frame`` of each kernel (default: M4Depth's, each forward kernel
-    once a level). The launch counts are zeroed just before the first frame
-    and read just after the last one."""
+def phase_main_path(dev, family=M4Depth, per_frame=None,
+                    cv_dtype: str = "bfloat16", blocks: int = TIMED_BLOCKS):
+    """Streaming d6 384x384 bf16 of ``family`` with ``cv_dtype`` cost
+    volumes, whose frame launches ``per_frame`` of each kernel (default:
+    M4Depth's, each forward kernel once a level), over ``blocks`` timed
+    blocks. The launch counts are zeroed just before the first frame and
+    read just after the last one."""
     # what earlier phases left allocated (the cuBLAS workspace of phase 4's
     # cuDNN-off convs, say) counts in the peak; the path's own memory
     # (weights, inputs, state, activations) is the peak above it
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
-    cfg = ModelConfig(compute_dtype="bfloat16")
+    cfg = ModelConfig(compute_dtype="bfloat16", cv_dtype=cv_dtype)
     if per_frame is None:
         per_frame = {k: cfg.num_levels if k in FORWARD else 0
                      for k in KERNELS}
@@ -680,7 +724,7 @@ def phase_main_path(dev, family=M4Depth, per_frame=None):
         state, depth = frame(state, go)
     torch.cuda.synchronize()
     block_ms = []
-    for _ in range(TIMED_BLOCKS):
+    for _ in range(blocks):
         t0 = time.perf_counter()
         for _ in range(FRAMES_PER_BLOCK):
             state, depth = frame(state, go)
@@ -689,7 +733,7 @@ def phase_main_path(dev, family=M4Depth, per_frame=None):
     launches = {k: kern.launches for k, kern in KERNELS.items()}
     peak = torch.cuda.max_memory_allocated()
 
-    n_frames = 1 + WARMUP_FRAMES + TIMED_BLOCKS * FRAMES_PER_BLOCK
+    n_frames = 1 + WARMUP_FRAMES + blocks * FRAMES_PER_BLOCK
     check(depth.shape == (1, SIZE, SIZE, 1), f"depth shape {depth.shape}")
     check(bool(torch.isfinite(depth).all()), "finite depth on the main path")
     for k, n in launches.items():
@@ -713,7 +757,7 @@ def phase_main_path(dev, family=M4Depth, per_frame=None):
         state_box[0], _ = frame(state_box[0], go)
 
     return dict(run=run_frame, launches=launches, n_frames=n_frames,
-                ms_per_frame=med, peak_above_base=peak - base)
+                ms_per_frame=med, peak_above_base=peak - base, model=model)
 
 
 # -- phase 7 ----------------------------------------------------------------
@@ -779,7 +823,8 @@ def phase_train_path(dev, family=M4Depth, T: int = TRAIN_T,
     last one."""
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
-    cfg = ModelConfig(compute_dtype="bfloat16", cv_dtype="bfloat16", **cfg_kw)
+    cfg = ModelConfig(**{"compute_dtype": "bfloat16",
+                         "cv_dtype": "bfloat16", **cfg_kw})
     if per_step is None:
         per_step = dict.fromkeys(KERNELS, (T - 1) * cfg.num_levels)
     model = family(cfg, device=dev, seed=0)
@@ -828,7 +873,7 @@ def phase_train_path(dev, family=M4Depth, T: int = TRAIN_T,
     log(f"  RMSE_log of the last step {scalars[-1]['RMSE_log']:.6f}")
     return dict(run=lambda: step(batch), launches=launches, n_steps=n_steps,
                 per_step=per_step, ms_per_step=med,
-                peak_above_base=peak - base)
+                peak_above_base=peak - base, model=model)
 
 
 # -- phase 12 ---------------------------------------------------------------
@@ -1177,6 +1222,20 @@ def phase_cli(dev, train_ms_no_loading: float) -> dict:
         check(perfs.shape == (7,) and bool(np.isfinite(perfs).all()),
               f"perfs-midair.txt {perfs}")
         log(f"  perfs-midair.txt: {perfs.tolist()}")
+        # the same checkpoint with float16 cost volumes
+        zero_launch_counts()
+        text = run_cli(["--mode=eval", f"--ckpt_dir={ckpt}",
+                        "--cv_dtype=float16"] + common)
+        out["eval_f16_launches"] = launch_counts()
+        check(out["eval_f16_launches"] == out["eval_launches"],
+              f"CLI eval at float16: {out['eval_f16_launches']}")
+        out["ms_frame_f16"] = parsed(
+            r"evaluated \d+ frames in [0-9.]+ s \(([0-9.]+) ms/frame", text,
+            "float16 eval time")
+        perfs16 = np.loadtxt(os.path.join(ckpt, "perfs-midair.txt"))
+        check(perfs16.shape == (7,) and bool(np.isfinite(perfs16).all()),
+              f"perfs-midair.txt at float16 {perfs16}")
+        log(f"  perfs-midair.txt at --cv_dtype=float16: {perfs16.tolist()}")
 
         # the CLI's streaming path against M4Depth.step on trajectory 0
         cmd = build_parser(argparse.ArgumentParser()).parse_args(
@@ -1252,6 +1311,16 @@ def phase_cli(dev, train_ms_no_loading: float) -> dict:
         perfs = np.loadtxt(os.path.join(v1_ckpt, "perfs-midair.txt"))
         check(perfs.shape == (7,) and bool(np.isfinite(perfs).all()),
               f"V1 perfs-midair.txt {perfs}")
+        zero_launch_counts()
+        run_cli(["--mode=eval", f"--ckpt_dir={v1_ckpt}",
+                 "--cv_dtype=float16"] + common + v1)
+        out["v1_eval_f16_launches"] = launch_counts()
+        check(out["v1_eval_f16_launches"] == out["v1_eval_launches"],
+              f"CLI V1 eval at float16: {out['v1_eval_f16_launches']}")
+        perfs = np.loadtxt(os.path.join(v1_ckpt, "perfs-midair.txt"))
+        check(perfs.shape == (7,) and bool(np.isfinite(perfs).all()),
+              f"V1 perfs-midair.txt at float16 {perfs}")
+        log(f"  V1 perfs-midair.txt at --cv_dtype=float16: {perfs.tolist()}")
 
         # 8. --remat (each decoder level again in the backward) at T=8
         zero_launch_counts()
@@ -1307,7 +1376,8 @@ def phase_cli(dev, train_ms_no_loading: float) -> dict:
         f"({1e3 / loader['loader']:.3f} ms/batch); with the pinned copy to "
         f"the card {loader['loader + copy']:.3f} batches/s")
     log(f"  [{card}] eval mode, streaming d6 {SIZE}x{SIZE} b=1 bf16, "
-        f"{n_frames} frames: {ms_frame:.3f} ms/frame, loading included")
+        f"{n_frames} frames: {ms_frame:.3f} ms/frame, loading included; "
+        f"with float16 cost volumes {out['ms_frame_f16']:.3f} ms/frame")
     log(f"  [{card}] V1 train mode, d6 {SIZE}x{SIZE} b=3 T=4 bf16 from the "
         f"store: {out['v1_ms_step']:.3f} ms/step; V1 eval mode "
         f"{out['v1_ms_frame']:.3f} ms/frame")
@@ -1374,9 +1444,7 @@ def sncv_cases(x, radius: int, cuts: int, C: int, n_pix: int, dtype,
     """The SNCV's forward (and backward) cases at one level shape, as a
     model calls it: M4Depth with c1 is c2 (radius 3), V1 with the current
     features against the warped ones (radius 4, one cut)."""
-    es = torch.finfo(dtype).bits // 8
-    n_off = (2 * radius + 1) ** 2
-    n_in = 1 if same else 2                # feature maps read (and written)
+    work = (n_pix, C, cuts, radius, torch.finfo(dtype).bits // 8, same)
     c1 = x["c1"].to(dtype)
     c2 = c1 if same else x["c2"].to(dtype)
     cases = {"sncv_forward": dict(
@@ -1385,10 +1453,7 @@ def sncv_cases(x, radius: int, cuts: int, C: int, n_pix: int, dtype,
         plain=lambda: spatial_cost_volume(c1, c2, radius, cuts, dtype,
                                           LEAKY),
         plain_calls=3,
-        # the feature maps read, n_off*cuts float32 written; one
-        # multiply-add per channel per offset, one compare per output
-        nbytes=n_pix * (n_in * C * es + n_off * cuts * 4),
-        flops=n_pix * n_off * (2 * C + cuts))}
+        **dict(zip(("nbytes", "flops"), cost.sncv_forward_work(*work))))}
     if not with_backward:
         return cases
     with torch.no_grad():
@@ -1409,21 +1474,17 @@ def sncv_cases(x, radius: int, cuts: int, C: int, n_pix: int, dtype,
         plain=lambda: torch.autograd.grad(out_plain, ins, x["g_sncv"],
                                           retain_graph=True),
         plain_calls=1,
-        # g and the forward's output (n_off*cuts float32 each) and the
-        # feature maps read, their gradients (one when c1 is c2) written;
-        # per offset and channel two multiply-adds, per output gradient a
-        # select and a scale
-        nbytes=n_pix * (2 * n_off * cuts * 4 + 2 * n_in * C * es),
-        flops=n_pix * n_off * (4 * C + 2 * cuts))
+        **dict(zip(("nbytes", "flops"), cost.sncv_backward_work(*work))))
     return cases
 
 
 def kernel_cases(x, cuts: int, C: int, n_pix: int, dtype, with_backward):
     """For each kernel at one level shape: the kernel's call, its plain
-    version's call, and the bytes and flops the function needs. As the
-    model calls them: the SNCV with c1 is c2, the DSCV with the quaternion;
-    the backward of the previous parallax is not asked for."""
-    es = torch.finfo(dtype).bits // 8
+    version's call, and the bytes and flops the function needs
+    (``ops.cost``). As the model calls them: the SNCV with c1 is c2, the
+    DSCV with the quaternion; the backward of the previous parallax is not
+    asked for."""
+    work = (n_pix, C, cuts, DEPTH_SEARCH, torch.finfo(dtype).bits // 8)
     c1 = x["c1"].to(dtype)
     args = dscv_args(x, dtype)
     cases = sncv_cases(x, SPATIAL_SEARCH, cuts, C, n_pix, dtype, True,
@@ -1433,12 +1494,7 @@ def kernel_cases(x, cuts: int, C: int, n_pix: int, dtype, with_backward):
             kernel=lambda: parallax_sweeping_cv_fused(*args, cuts, dtype),
             plain=lambda: parallax_sweeping_cv(*args, cuts, dtype),
             plain_calls=3,
-            # c1, c2 and the previous parallax in the cv dtype, the float32
-            # centre; 9*cuts + 1 float32 out. Per hypothesis and channel:
-            # 3 lerps (2 flops each) and a multiply-add; ~40 flops of
-            # geometry per hypothesis and cut
-            nbytes=n_pix * ((2 * C + 1) * es + 4 + (9 * cuts + 1) * 4),
-            flops=n_pix * 9 * (8 * C + 40 * cuts)),
+            **dict(zip(("nbytes", "flops"), cost.dscv_forward_work(*work)))),
     })
     if not with_backward:
         return cases
@@ -1463,14 +1519,7 @@ def kernel_cases(x, cuts: int, C: int, n_pix: int, dtype, with_backward):
         plain=lambda: torch.autograd.grad(
             (cv_p, pw_p), ins, (x["g_cv"], x["g_para"]), retain_graph=True),
         plain_calls=1,
-        # c1, c2, the previous parallax (cv dtype), the centre, dcv and
-        # dpara_out read; dc1, dc2 (cv dtype) and dcentre written. Per
-        # hypothesis and channel ~27 flops (the sample, its two position
-        # derivatives, four corner weights and atomic adds, the dc1 sum);
-        # ~40 flops of geometry per hypothesis
-        nbytes=n_pix * ((2 * C + 1) * es + 4 + (9 * cuts + 1) * 4
-                        + 2 * C * es + 4),
-        flops=n_pix * 9 * (27 * C + 40))
+        **dict(zip(("nbytes", "flops"), cost.dscv_backward_work(*work))))
     return cases
 
 
@@ -2047,6 +2096,301 @@ def phase_cli_launcher(dev, cli_ms: float) -> float:
     return ms
 
 
+# -- phase 16 ---------------------------------------------------------------
+
+F16 = "float16"
+F16_BLOCKS = 2              # timed blocks of the float16 streaming path
+
+
+def phase_fp16_extreme(dev) -> None:
+    """The JAX package's extreme-parallax input (test_cost_volume.py's: a
+    previous parallax of 1e6, past float16's 65504) through the DSCV kernel
+    at float16, and the same parallax at the six level shapes: every output
+    finite, the warped parallax at most 65504, and both outputs equal to
+    the plain version's within phase 2's tolerances."""
+    g = torch.Generator().manual_seed(3)
+    b, h, w, C = 1, 12, 14, 8
+    jax_case = dict(
+        c1=unit_cuts(g, (b, h, w, C), 1), c2=unit_cuts(g, (b, h, w, C), 1),
+        para=torch.full((b, h, w, 1), 1.0e6),
+        centre=torch.full((b, h, w, 1), 2.0),
+        rot=torch.tensor([[1.0, 0.0, 0.0, 0.0]]),
+        trans=torch.tensor([[0.3, 0.1, 0.2]]),
+        f=torch.tensor([[10.0, 11.0]]), c=torch.tensor([[7.0, 6.0]]))
+    cases = [("JAX test input 12x14", 1,
+              {k: v.to(dev) for k, v in jax_case.items()})]
+    for spec in level_specs(ModelConfig()):
+        x = op_inputs(spec, dev, seed=300 + spec[0])
+        x["para"] = torch.full_like(x["para"], 1.0e6)
+        cases.append((f"level {spec[0]} {spec[1]}x{spec[2]}", spec[4], x))
+    for name, cuts, x in cases:
+        before = KERNELS["dscv_forward"].launches
+        args = dscv_args(x, torch.float32)
+        cv, pw = parallax_sweeping_cv_fused(*args, cuts, torch.float16)
+        torch.cuda.synchronize()
+        check(KERNELS["dscv_forward"].launches == before + 1,
+              f"{name}: the float16 DSCV kernel launched")
+        check(bool(torch.isfinite(cv).all() and torch.isfinite(pw).all()),
+              f"{name}: finite outputs from a parallax of 1e6 at float16")
+        check(pw.max().item() <= 65504.0,
+              f"{name}: warped parallax {pw.max().item()} above 65504")
+        cv_ref, pw_ref = parallax_sweeping_cv(*args, cuts, torch.float16)
+        torch.testing.assert_close(cv, cv_ref, **DSCV_CV_TOL)
+        torch.testing.assert_close(pw, pw_ref, **DSCV_PARA_TOL)
+        log(f"  {name}: parallax 1e6 at float16: outputs finite, warped "
+            f"parallax max {pw.max().item():.1f}, cv max|kernel - plain| "
+            f"{max_abs_err(cv, cv_ref):.3e}")
+
+
+def phase_fp16_paths(dev) -> dict:
+    """The serving and training paths of both families with float16 cost
+    volumes (bf16 convs): streaming M4Depth.step (with a profile of its
+    frames) and M4DepthV1.step, and each family's training step at b=3,
+    T=4; each path's launch counts zeroed just before it and read just
+    after."""
+    out = {}
+    log("   M4Depth streaming, d6 384x384 b=1, bf16 convs, float16 cost "
+        "volumes")
+    out["serve"] = phase_main_path(dev, cv_dtype=F16, blocks=F16_BLOCKS)
+    phase_profile(out["serve"]["run"], PROFILED_FRAMES, "frame")
+    log("   M4DepthV1 streaming at float16")
+    out["v1_serve"] = phase_main_path(
+        dev, M4DepthV1, {k: 6 if k == "sncv_forward" else 0
+                         for k in KERNELS}, cv_dtype=F16, blocks=1)
+    log(f"   M4Depth training step, b={TRAIN_B} T={TRAIN_T}, float16 cost "
+        "volumes")
+    out["train"] = phase_train_path(dev, cv_dtype=F16)
+    log(f"   M4DepthV1 training step, b={TRAIN_B} T={TRAIN_T}, float16")
+    out["v1_train"] = phase_train_path(dev, M4DepthV1,
+                                       per_step=v1_launches(TRAIN_T),
+                                       cv_dtype=F16)
+    return out
+
+
+# -- phase 17 ---------------------------------------------------------------
+
+
+def conv_flops_counted(model, fn) -> tuple:
+    """``compiled_cost(fn)`` and, from the same call, the convolutions'
+    flops counted from the layer shapes: each call of a ``Conv3x3`` of
+    ``model`` does 2 * (output elements) * Cin * 3 * 3 (2 per multiply-add,
+    as XLA counts)."""
+    from m4depth_tpu_torch.models.encoder import Conv3x3
+
+    total = [0]
+
+    def hook(mod, _, y):
+        cout, cin, kh, kw = mod.weight.shape
+        total[0] += 2 * y.numel() * cin * kh * kw
+
+    handles = [m.register_forward_hook(hook) for m in model.modules()
+               if isinstance(m, Conv3x3)]
+    try:
+        got = compiled_cost(fn)
+    finally:
+        for handle in handles:
+            handle.remove()
+    return got, total[0]
+
+
+def phase_compiled_cost(serve: dict, train: dict) -> dict:
+    """``utils.profiling.compiled_cost`` of one serving frame (phase 6's
+    path) and one training step (phase 8's): flops and bytes accessed; the
+    forward convolutions' flops equal the count from the layer shapes, and
+    the step's backward convolutions do between 1 and 2 times their
+    forward's (each computes its weight's gradient, and its input's where
+    that needs one)."""
+    out = {}
+    for name, path in (("serving frame", serve), ("training step", train)):
+        cost_, from_shapes = conv_flops_counted(path["model"], path["run"])
+        torch.cuda.synchronize()
+        check(cost_["convolution flops"] == from_shapes,
+              f"{name}: convolution flops {cost_['convolution flops']} "
+              f"against {from_shapes} from the layer shapes")
+        bwd = cost_["convolution backward flops"]
+        if name == "training step":
+            check(from_shapes <= bwd <= 2 * from_shapes,
+                  f"{name}: backward convolution flops {bwd}")
+        else:
+            check(bwd == 0, f"{name}: no backward, {bwd} flops")
+        log(f"  {name}: flops {cost_['flops']:.0f}, bytes accessed "
+            f"{cost_['bytes accessed']:.0f} (eager: an upper bound); "
+            f"convolutions {cost_['convolution flops']:.0f} forward (layer "
+            f"shapes: {from_shapes}), {bwd:.0f} backward; cost volumes "
+            f"{cost_['cost volume flops']:.0f} flops, "
+            f"{cost_['cost volume bytes']:.0f} bytes")
+        out[name] = cost_
+    return out
+
+
+# -- phase 18 ---------------------------------------------------------------
+
+
+def phase_native() -> dict:
+    """``m4depth_tpu_torch.native``: built with g++ on this host, then held
+    against the port's plain ``dense_image_warp`` (forward, rtol and atol
+    1e-5) and its autograd gradient (1e-4), at the native tests' shapes;
+    then timed at level 1's shape (b=3, 192x192, 16 channels)."""
+    from m4depth_tpu_torch import native
+    from m4depth_tpu_torch.ops import dense_image_warp
+
+    t0 = time.perf_counter()
+    native.LIBRARY.get()
+    build_s = time.perf_counter() - t0
+    rng = np.random.RandomState(1)
+    for shape, scale in (((3, 9, 11, 4), 4.0), ((2, 7, 8, 3), 2.0)):
+        img = rng.randn(*shape).astype(np.float32)
+        flow = (rng.randn(*shape[:3], 2) * scale).astype(np.float32)
+        grad = rng.randn(*shape).astype(np.float32)
+        ti = torch.from_numpy(img).requires_grad_()
+        tf = torch.from_numpy(flow).requires_grad_()
+        ref = dense_image_warp(ti, tf)
+        (ref * torch.from_numpy(grad)).sum().backward()
+        np.testing.assert_allclose(native.backproject_forward(img, flow),
+                                   ref.detach().numpy(), rtol=1e-5,
+                                   atol=1e-5)
+        dimg, dflow = native.backproject_backward(img, flow, grad)
+        np.testing.assert_allclose(dimg, ti.grad.numpy(), rtol=1e-4,
+                                   atol=1e-4)
+        np.testing.assert_allclose(dflow, tf.grad.numpy(), rtol=1e-4,
+                                   atol=1e-4)
+    img = rng.randn(3, 192, 192, 16).astype(np.float32)
+    flow = (rng.randn(3, 192, 192, 2) * 4).astype(np.float32)
+    times = {}
+    for name, fn in (("forward", lambda: native.backproject_forward(
+            img, flow)), ("backward", lambda: native.backproject_backward(
+                img, flow, img))):
+        fn()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            fn()
+        times[name] = (time.perf_counter() - t0) * 1e3 / 5
+    log(f"  built in {build_s:.3f} s; forward and gradients match the plain "
+        f"warp and autograd; at 3x192x192x16 on {os.cpu_count()} host "
+        f"threads: forward {times['forward']:.3f} ms, backward "
+        f"{times['backward']:.3f} ms")
+    return dict(build_s=build_s, **times)
+
+
+# -- phase 19 ---------------------------------------------------------------
+
+TOOL_FPS_FRAMES = 50
+TOOL_TRAIN_STEPS = 3
+REHEARSAL_EPOCH, REHEARSAL_STEPS = 10, (20, 30)
+REHEARSAL_VAL_BATCHES = 8
+
+
+def phase_tools(dev) -> dict:
+    """The port's tools, in this process, at reduced counts: each kernel's
+    launches zeroed before each tool and read after it."""
+    from m4depth_tpu_torch.tools import (
+        fps,
+        io_bench,
+        memory_footprint,
+        rehearsal,
+        train_prof,
+    )
+
+    card = gpu_name_and_power_limit()
+    out, launches = {}, {}
+
+    def tool(name, fn):
+        zero_launch_counts()
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        launches[name] = launch_counts()
+        log(f"  {name} took {time.perf_counter() - t0:.1f} s; launches "
+            + ", ".join(f"{k} {n}" for k, n in launches[name].items()))
+        out[name] = result
+        return result
+
+    r = tool("memory_footprint", lambda: memory_footprint.run(
+        memory_footprint.parse_args([])))
+    check(r["finite"] and r["peak_above_start"] > 0, f"footprint {r}")
+    log(f"  [{card}] memory_footprint, d6 {SIZE}x{SIZE} b=1 bf16: params "
+        f"{r['params']} bytes, recurrent state {r['state']} bytes, "
+        f"memory_allocated() {r['allocated']} bytes above the start, peak "
+        f"{r['peak_above_start']} bytes above it "
+        f"({r['peak_above_start'] / 2 ** 20:.1f} MiB; the reference claims "
+        f"~{memory_footprint.REFERENCE_CLAIM_MB} MB)")
+
+    r = tool("fps", lambda: fps.run(fps.parse_args(
+        ["--n", str(TOOL_FPS_FRAMES), "--profile"])))
+    frames = 1 + fps.WARMUP_FRAMES + fps.REPEATS * TOOL_FPS_FRAMES \
+        + fps.PROFILED_FRAMES
+    check(r["finite"] and all(
+        n == (6 * frames if k in FORWARD else 0)
+        for k, n in launches["fps"].items()), f"fps launches in {frames} "
+        f"frames: {launches['fps']}")
+    bd = r["breakdown"]
+    check(bd["n_events"] > 0, "fps --profile recorded device events")
+    check(abs(sum(bd["groups"].values()) - bd["busy_us"])
+          <= 1e-6 * bd["busy_us"], "the breakdown sums to the busy time")
+    log(f"  [{card}] fps --n {TOOL_FPS_FRAMES}: {r['fps']:.2f} frames/s, "
+        f"{r['ms_per_frame']:.3f} ms/frame; --profile: device busy "
+        f"{bd['busy_us']:.1f} us/frame: " + ", ".join(
+            f"{c} {us:.1f}" for c, us in sorted(
+                r["components_us"].items(), key=lambda kv: -kv[1])))
+
+    r = tool("train_prof", lambda: train_prof.run(train_prof.parse_args(
+        ["--steps", str(TOOL_TRAIN_STEPS)])))
+    steps = 1 + train_prof.WARMUP_STEPS \
+        + train_prof.REPEATS * TOOL_TRAIN_STEPS + train_prof.PROFILED_STEPS
+    check(np.isfinite(r["loss"]) and all(
+        n == (TRAIN_T - 1) * 6 * steps
+        for n in launches["train_prof"].values()),
+        f"train_prof launches in {steps} steps: {launches['train_prof']}")
+    bd = r["breakdown"]
+    check(bd["n_events"] > 0 and abs(sum(bd["groups"].values())
+                                     - bd["busy_us"]) <= 1e-6 * bd["busy_us"],
+          "train_prof's groups sum to the busy time")
+    log(f"  [{card}] train_prof --steps {TOOL_TRAIN_STEPS}: "
+        f"{r['ms_per_step']:.3f} ms/step (first step {r['first_step_s']:.2f}"
+        f" s), device busy {bd['busy_us']:.1f} us/step: " + ", ".join(
+            f"{d} {c} {us:.1f}" for (d, c), us in sorted(
+                bd["groups"].items(), key=lambda kv: -kv[1])))
+
+    r = tool("io_bench", lambda: io_bench.run(io_bench.parse_args(
+        ["--trajs", "2", "--frames", "16"])))
+    check(r["record_store"]["batches_per_s"] > 0, f"io_bench {r}")
+    log(f"  [{card}] io_bench, record store at {SIZE}^2 b=3 T=4 (2 x 16 "
+        f"frames, 8 workers): {r['record_store']['batches_per_s']:.2f} "
+        f"batches/s with augmentation, "
+        f"{r['record_store_no_augment']['batches_per_s']:.2f} without; "
+        + ("decode path " + f"{r['decode']['batches_per_s']:.2f} batches/s"
+           if "decode" in r else "decode path not measured (no cv2 or PIL "
+           "on this host)"))
+
+    with tempfile.TemporaryDirectory() as workdir:
+        common = ["--workdir", workdir, "--steps_per_epoch",
+                  str(REHEARSAL_EPOCH), "--val_max_batches",
+                  str(REHEARSAL_VAL_BATCHES)]
+        texts = []
+        for total in REHEARSAL_STEPS:
+            texts.append(tool(f"rehearsal --steps {total}", lambda: run_cli(
+                common + ["--steps", str(total)], entry=rehearsal.main)))
+        check("Resuming from epoch 2" in texts[1],
+              "the relaunched rehearsal resumed at epoch 2")
+        saved = sorted(os.listdir(os.path.join(workdir, "ckpt", "train")))
+        check(saved == ["0.pt", "1.pt", "2.pt"],
+              f"rehearsal checkpoints {saved}")
+        with open(os.path.join(workdir, "heldout.json")) as f:
+            heldout = [json.loads(line) for line in f]
+        check(len(heldout) == 2 and all(
+            np.isfinite(v) for h in heldout for v in h.values()),
+            f"heldout.json {heldout}")
+        ms = [parsed(r"step ms median ([0-9.]+)", t, "rehearsal step time")
+              for t in texts]
+        log(f"  [{card}] rehearsal, d6 {SIZE}^2 b=3 T=4 bf16 cosine on "
+            f"DeviceSyntheticStream: 2 epochs of {REHEARSAL_EPOCH} steps at "
+            f"{ms[0]:.3f} ms/step, resumed and extended to "
+            f"{REHEARSAL_STEPS[1]} steps at {ms[1]:.3f} ms/step; held-out "
+            f"AbsRel {heldout[0]['AbsRel']}, then {heldout[1]['AbsRel']}")
+    out["launches"] = launches
+    return out
+
+
 KERNEL_INFO = {
     "sncv_forward": dict(source="m4depth_tpu_torch/ops/csrc/sncv.cu",
                          replaces="m4depth_tpu/ops/sncv_pallas.py:28"),
@@ -2083,9 +2427,9 @@ def main() -> int:
     log("== phase 2: forward kernels against their plain versions (d6 "
         "384x384 level shapes, b=1; V1's SNCV at b=1 and b=3)")
     worst = timed(2, phase_kernels_vs_plain, serving, dev)
-    log("== phase 3: backward kernels against autograd of the plain "
-        f"forward (d6 384x384 level shapes, b={TRAIN_B}; V1's SNCV at b=1 "
-        f"and b={TRAIN_B})")
+    log("== phase 3: backward kernels against their plain versions (d6 "
+        f"384x384 level shapes, b={TRAIN_B}; V1's SNCV at b=1 and "
+        f"b={TRAIN_B})")
     worst.update(timed(3, phase_backward_vs_plain, serving, dev))
     log("== phase 4: d6 128x128 model, card (kernels) against CPU (plain), "
         "float32")
@@ -2165,6 +2509,27 @@ def main() -> int:
     gloo = phase_ddp_gloo(dev)
     phase_cli_launcher(dev, cli["ms_step"])
     times[15] = time.perf_counter() - t0
+    log("== phase 16: float16 cost volumes: the extreme parallax through the "
+        "DSCV kernel; streaming and training of both families; the kernels' "
+        "float16 device times")
+    t0 = time.perf_counter()
+    phase_fp16_extreme(dev)
+    f16 = phase_fp16_paths(dev)
+    f16_cfg = ModelConfig(compute_dtype="bfloat16", cv_dtype=F16)
+    log("   float16 kernel device times per level shape, b=1 (serving)")
+    f16_serving_totals = phase_kernel_times(f16_cfg, dev, 1, False, 1)
+    log(f"   float16 kernel device times per level shape, b={TRAIN_B} "
+        "(training)")
+    f16_totals = phase_kernel_times(f16_cfg, dev, TRAIN_B, True, TRAIN_T - 1)
+    times[16] = time.perf_counter() - t0
+    log("== phase 17: compiled_cost of one serving frame and one training "
+        "step")
+    costs = timed(17, phase_compiled_cost, serve, train)
+    log("== phase 18: the native host backproject")
+    timed(18, phase_native)
+    log("== phase 19: the port's tools (memory_footprint, fps, train_prof, "
+        "io_bench, rehearsal)")
+    tools = timed(19, phase_tools, dev)
 
     kernels = []
     for key, info in KERNEL_INFO.items():
@@ -2226,11 +2591,43 @@ def main() -> int:
             ddp_launches_per_step=ddp1["launches"][key] // ddp1["n_steps"],
             gloo_rank_launches_per_step=[
                 r["launches_per_step"][key] for r in gloo["ranks"]],
+            # phase 19: each tool's run
+            tool_launches={name: n[key]
+                           for name, n in tools["launches"].items()},
             passed=True))
         check(kernels[-1]["launches_per_step"] == train["per_step"][key],
               f"{key} launches per step")
+    # the float16 instantiations: the same kernels with another element
+    # type, on phase 16's paths; the same bytes, so the same bound
+    for key, info in KERNEL_INFO.items():
+        t, ts = f16_totals[key], f16_serving_totals.get(key)
+        n_train = f16["train"]["launches"][key]
+        kernels.append(dict(
+            name=err_key(key, torch.float16), route="cuda", **info,
+            launches=n_train,
+            launches_per_step=n_train // f16["train"]["n_steps"],
+            serving_launches_per_frame=(f16["serve"]["launches"][key]
+                                        // f16["serve"]["n_frames"]),
+            v1_serving_launches_per_frame=(f16["v1_serve"]["launches"][key]
+                                           // f16["v1_serve"]["n_frames"]),
+            v1_launches_per_step=(f16["v1_train"]["launches"][key]
+                                  // f16["v1_train"]["n_steps"]),
+            cli_eval_launches=cli["eval_f16_launches"][key],
+            cli_v1_eval_launches=cli["v1_eval_f16_launches"][key],
+            max_abs_err=worst[err_key(key, torch.float16)],
+            ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+            bound_by="bytes" if t["t_bytes"] >= t["t_ops"] else "operations",
+            library_ms=None,
+            serving_ms=ts["ms"] if ts else None,
+            serving_bound_ms=ts["bound_ms"] if ts else None,
+            autograd_ms=t.get("autograd_ms"),
+            passed=True))
+        check(kernels[-1]["launches_per_step"]
+              == f16["train"]["per_step"][key],
+              f"{key} float16 launches per step")
     log("phase times: " + ", ".join(f"{k} {v:.1f} s" for k, v in
                                     times.items()))
+    log(json.dumps({"compiled_cost": costs}))
     log(json.dumps({"remat": {k: dict(ms_per_step=v["ms_per_step"],
                                       peak_above_base=v["peak_above_base"])
                               for k, v in remat.items()},

@@ -104,8 +104,10 @@ def build_parser(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
     g.add_argument("--compute_dtype", default="bfloat16",
                    choices=["float32", "bfloat16"])
     g.add_argument("--cv_dtype", default="bfloat16",
-                   choices=["float32", "bfloat16"],
-                   help="Dtype the cost-volume inputs are rounded to")
+                   choices=["float32", "bfloat16", "float16"],
+                   help="Dtype the cost-volume inputs are rounded to (the "
+                        "reference hard-coded float16, "
+                        "depth_operations.py:276-278)")
     # the JAX CLI's TPU formulations: accepted, one implementation here
     g.add_argument("--dscv_impl", default="rows",
                    choices=["split", "rows", "rows_fused", "fused", "flat",

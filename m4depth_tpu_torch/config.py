@@ -19,7 +19,11 @@ from typing import Optional, Tuple
 
 import torch
 
-DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+          "float16": torch.float16}
+# float16 is the reference's own cost-volume precision (its
+# depth_operations.py:276-278); the convs compute in float32 or bfloat16
+COMPUTE_DTYPES = ("float32", "bfloat16")
 DEPTH_TYPES = ("map", "velodyne")
 REMAT_POLICIES = ("dscv", "all")
 
@@ -50,7 +54,9 @@ class ModelConfig:
     depth_type: str = "map"           # "map" (dense gt) or "velodyne" (sparse gt)
     ablation: AblationFlags = dataclasses.field(default_factory=AblationFlags)
     compute_dtype: str = "float32"    # conv dtype: "float32" | "bfloat16"
-    cv_dtype: str = "bfloat16"        # dtype the cost-volume inputs are rounded to
+    cv_dtype: str = "bfloat16"        # dtype the cost-volume inputs are
+                                      # rounded to: "float32" | "bfloat16"
+                                      # | "float16"
     remat: bool = False               # recompute in the backward pass what
                                       # remat_policy names instead of storing
                                       # it (trades device time for memory)
@@ -61,9 +67,10 @@ class ModelConfig:
                                       # what no remat stores)
 
     def __post_init__(self):
-        for name in ("compute_dtype", "cv_dtype"):
-            if getattr(self, name) not in DTYPES:
-                raise ValueError(f"{name} must be one of {sorted(DTYPES)}, "
+        for name, allowed in (("compute_dtype", COMPUTE_DTYPES),
+                              ("cv_dtype", tuple(DTYPES))):
+            if getattr(self, name) not in allowed:
+                raise ValueError(f"{name} must be one of {sorted(allowed)}, "
                                  f"got {getattr(self, name)!r}")
         if self.depth_type not in DEPTH_TYPES:
             raise ValueError(f"depth_type must be one of {DEPTH_TYPES}, "

@@ -1,4 +1,5 @@
-"""Build and load the CUDA kernels in ``ops/csrc``.
+"""Build and load the CUDA kernels in ``ops/csrc`` (and, through
+``compile_libraries``, the host library of ``native/``).
 
 Each ``csrc/*.cu`` file has a plain C interface and is compiled on first
 use with ``nvcc`` for Hopper (``sm_90a``) into its own shared library under
@@ -21,7 +22,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable, Sequence
+from typing import Callable, Dict, Iterable, Sequence
 
 CSRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
@@ -44,34 +45,50 @@ def nvcc() -> str:
                        "CUDA_HOME); the CUDA kernels cannot be built")
 
 
-def library_path(source: str) -> Path:
-    """Where the library built from ``csrc/<source>`` lives."""
-    src = CSRC_DIR / source
+def library_path(source: str, src_dir: Path = CSRC_DIR,
+                 flags: Sequence[str] = NVCC_FLAGS) -> Path:
+    """Where the library built from ``src_dir/<source>`` with ``flags``
+    lives."""
+    src = src_dir / source
     digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+        src.read_bytes() + " ".join(flags).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{src.stem}-{digest}.so"
 
 
 def build(sources: Iterable[str] = SOURCES) -> Dict[str, Path]:
-    """Compile every listed source whose library is missing, one ``nvcc``
-    per source, all started together. The compiler's output (``-Xptxas -v``:
-    registers, shared memory, spills) is kept in ``_build/<stem>.log``.
+    """Compile every listed ``csrc`` source whose library is missing, one
+    ``nvcc`` per source, all started together. The compiler's output
+    (``-Xptxas -v``: registers, shared memory, spills) is kept in
+    ``_build/<stem>.log``.
 
     Raises ``RuntimeError`` naming each source that failed to build.
     """
-    libs = {s: library_path(s) for s in sources}
+    return compile_libraries(sources, CSRC_DIR, nvcc, NVCC_FLAGS,
+                             "CUDA kernel")
+
+
+def compile_libraries(sources: Iterable[str], src_dir: Path,
+                      compiler: Callable[[], str], flags: Sequence[str],
+                      what: str) -> Dict[str, Path]:
+    """Compile each of ``sources`` (in ``src_dir``) whose library is
+    missing into ``BUILD_DIR`` with ``compiler()`` and ``flags``, under the
+    build lock, all started together; keep each compiler's output in
+    ``<stem>.log``. Raises ``RuntimeError`` ("<what> build failed"), with
+    each failing source's compiler output."""
+    libs = {s: library_path(s, src_dir, flags) for s in sources}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with open(BUILD_DIR / ".lock", "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
         todo = [s for s, p in libs.items() if not p.exists()]
         if not todo:
             return libs
-        compiler = nvcc()
+        cc = compiler()
+        name = Path(cc).name
         procs = {}
         for s in todo:
             tmp = libs[s].with_suffix(".so.tmp")
             procs[s] = (subprocess.Popen(
-                [compiler, *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / s)],
+                [cc, *flags, "-o", str(tmp), str(src_dir / s)],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
                 tmp)
         failures = []
@@ -81,15 +98,16 @@ def build(sources: Iterable[str] = SOURCES) -> Dict[str, Path]:
             except subprocess.TimeoutExpired:
                 proc.kill()
                 out, _ = proc.communicate()
-                failures.append(f"{s}: nvcc timed out\n{out}")
+                failures.append(f"{s}: {name} timed out\n{out}")
                 continue
             (BUILD_DIR / f"{Path(s).stem}.log").write_text(out)
             if proc.returncode != 0:
-                failures.append(f"{s}: nvcc exited {proc.returncode}\n{out}")
+                failures.append(f"{s}: {name} exited {proc.returncode}\n"
+                                f"{out}")
             else:
                 os.replace(tmp, libs[s])
         if failures:
-            raise RuntimeError("CUDA kernel build failed:\n"
+            raise RuntimeError(f"{what} build failed:\n"
                                + "\n".join(failures))
     return libs
 

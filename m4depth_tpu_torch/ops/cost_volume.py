@@ -14,8 +14,10 @@ the forward, since the port has no expanded map). Its plain version is
 autograd through ``parallax_sweeping_cv``.
 
 Both round c1, c2 and the previous parallax to ``cv_dtype`` (as the JAX
-paths do) and then sample, multiply and sum in float32. Both return only
-the centre hypothesis's warped parallax: the model reads no other.
+paths do) and then sample, multiply and sum in float32. For float16 the
+parallax is first clamped to float16's finite range (``round_parallax``,
+the JAX package's ``_saturating_cast``). Both return only the centre
+hypothesis's warped parallax: the model reads no other.
 """
 
 from __future__ import annotations
@@ -27,8 +29,9 @@ import torch
 
 from m4depth_tpu_torch.geometry.camera import Camera
 from m4depth_tpu_torch.geometry.parallax import parallax_sweep_flows
+from m4depth_tpu_torch.ops import cost
 from m4depth_tpu_torch.ops._build import CudaKernel, check_kernel_inputs
-from m4depth_tpu_torch.ops.sncv import KERNEL_DTYPES, _is_bf16, _stream
+from m4depth_tpu_torch.ops.sncv import KERNEL_DTYPES, _dtype_code, _stream
 from m4depth_tpu_torch.ops.warp import dense_image_warp
 
 DSCV_KERNEL = CudaKernel(
@@ -37,6 +40,19 @@ DSCV_KERNEL = CudaKernel(
 DSCV_BACKWARD_KERNEL = CudaKernel(
     "dscv.cu", "dscv_backward",
     [ctypes.c_void_p] * 14 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+
+
+def round_parallax(para: torch.Tensor, cv_dtype: torch.dtype) -> torch.Tensor:
+    """``para`` in ``cv_dtype``. For float16 it is clamped to +-65504 first:
+    the parallax is rho/depth-shaped and exceeds float16's range under a
+    degenerate depth (random weights give one), where a plain cast gives
+    inf and inf * 0 in the bilinear weights NaN. The clamp's gradient is
+    zero outside the range, as ``jnp.clip``'s. float32 and bfloat16 hold
+    any finite parallax, so they are cast alone (no added launch)."""
+    if cv_dtype == torch.float16:
+        big = torch.finfo(torch.float16).max
+        para = para.clamp(-big, big)
+    return para.to(cv_dtype)
 
 
 def parallax_sweeping_cv(
@@ -76,8 +92,8 @@ def parallax_sweeping_cv(
     prod = c1.to(cv_dtype).float()[:, None] * c2w
     cv = prod.reshape(b, s, h, w, num_cuts, C // num_cuts).mean(dim=-1)
     cv = cv.permute(0, 2, 3, 4, 1).reshape(b, h, w, num_cuts * s)
-    para_center = dense_image_warp(para_prev_t.to(cv_dtype).float(),
-                                   flows[:, search_range])
+    para_center = dense_image_warp(round_parallax(para_prev_t, cv_dtype)
+                                   .float(), flows[:, search_range])
     return cv, para_center
 
 
@@ -94,7 +110,7 @@ def _dscv_forward(a, bb, para, centre, rot, trans, f, c, search_range: int,
         a.data_ptr(), bb.data_ptr(), para.data_ptr(), centre.data_ptr(),
         rot.data_ptr(), trans.data_ptr(), f.data_ptr(), c.data_ptr(),
         cv.data_ptr(), para_center.data_ptr(), b, h, w, C, num_cuts,
-        search_range, rot.shape[1], _is_bf16(a), _stream(a),
+        search_range, rot.shape[1], _dtype_code(a), _stream(a),
         device=a.device)
     return cv, para_center
 
@@ -117,7 +133,7 @@ def _dscv_backward(a, bb, para, centre, rot, trans, f, c, dcv, dpara_out,
         rot.data_ptr(), trans.data_ptr(), f.data_ptr(), c.data_ptr(),
         dcv.data_ptr(), dpara_out.data_ptr(), dc1.data_ptr(), dc2.data_ptr(),
         dcentre.data_ptr(), None if dpara is None else dpara.data_ptr(),
-        b, h, w, C, num_cuts, search_range, rot.shape[1], _is_bf16(a),
+        b, h, w, C, num_cuts, search_range, rot.shape[1], _dtype_code(a),
         _stream(a), device=a.device)
     return (dc1, dc2.to(bb.dtype),
             None if dpara is None else dpara.to(para.dtype), dcentre)
@@ -165,10 +181,28 @@ def parallax_sweeping_cv_fused(
     """DSCV: the fused CUDA kernel on CUDA tensors, the plain version on CPU
     ones. Same arguments and results as :func:`parallax_sweeping_cv`. On
     CUDA tensors the results carry ``DSCVFunction``'s graph when an input
-    requires grad."""
+    requires grad. Under ``cost.counting()`` the call counts its work
+    once."""
     inputs = (c1, c2, para_prev_t, para_sweep_center, rot, trans, camera.f,
               camera.c)
-    if all(t.device.type == "cpu" for t in inputs):
+
+    def work():
+        n_pix = c1.shape[0] * c1.shape[1] * c1.shape[2]
+        args = (n_pix, c1.shape[3], num_cuts, search_range,
+                torch.finfo(cv_dtype).bits // 8)
+        return cost.dscv_forward_work(*args), cost.dscv_backward_work(*args)
+
+    with cost.counted_call("dscv", work, inputs) as done:
+        return done(_dscv_fused(c1, c2, para_prev_t, para_sweep_center,
+                                rot, trans, camera, search_range, num_cuts,
+                                cv_dtype))
+
+
+def _dscv_fused(c1, c2, para_prev_t, para_sweep_center, rot, trans, camera,
+                search_range, num_cuts, cv_dtype):
+    if all(t.device.type == "cpu" for t in (c1, c2, para_prev_t,
+                                            para_sweep_center, rot, trans,
+                                            camera.f, camera.c)):
         return parallax_sweeping_cv(c1, c2, para_prev_t, para_sweep_center,
                                     rot, trans, camera, search_range,
                                     num_cuts, cv_dtype)
@@ -187,7 +221,8 @@ def parallax_sweeping_cv_fused(
                          f"{num_cuts} cuts")
     if cv_dtype not in KERNEL_DTYPES:
         raise TypeError(f"dscv: cv_dtype {cv_dtype} not in {KERNEL_DTYPES}")
-    a, bb, para = (t.to(cv_dtype) for t in (c1, c2, para_prev_t))
+    a, bb = c1.to(cv_dtype), c2.to(cv_dtype)
+    para = round_parallax(para_prev_t, cv_dtype)
     check_kernel_inputs("dscv", (a, bb, para), (cv_dtype,), c1.device)
     check_kernel_inputs("dscv", (para_sweep_center,), (torch.float32,),
                         c1.device)

@@ -1,11 +1,13 @@
 // Device helpers shared by the cost-volume kernels (sncv.cu, dscv.cu): input
-// types widened to float32, 16-byte vector loads and stores, the coalesced
-// store of a block's staged outputs, and the shared-memory limit of a
-// kernel on the current device.
+// types (float32, bfloat16, float16) widened to float32, 16-byte vector
+// loads and stores, the coalesced store of a block's staged outputs, the
+// shared-memory limit of a kernel on the current device, and the dtype code
+// of the C entry points.
 
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -16,12 +18,27 @@ __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
+__device__ __forceinline__ float to_float(__half v) { return __half2float(v); }
 
 // Two floats rounded to bfloat16 (round to nearest even, as
 // __float2bfloat16), packed with the first in the lower half.
 __device__ __forceinline__ unsigned pack_bf16x2(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const unsigned*>(&v);
+}
+
+// Two floats rounded to float16 (round to nearest even, as
+// torch.Tensor.to(torch.float16)), packed with the first in the lower half.
+__device__ __forceinline__ unsigned pack_half2(float lo, float hi) {
+  const __half2 v = __floats2half2_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&v);
+}
+
+// Both halves of a word (the lower one first) widened to float32.
+__device__ __forceinline__ void unpack_half2(unsigned u, float* f) {
+  const float2 v = __half22float2(*reinterpret_cast<const __half2*>(&u));
+  f[0] = v.x;
+  f[1] = v.y;
 }
 
 // Elements of T in one 16-byte vector.
@@ -33,8 +50,8 @@ inline bool aligned16(const void* p) {
 }
 
 // VEC consecutive elements of T: VEC is kVec<T> (one 16-byte load, from an
-// address aligned to 16 bytes), 4 for bfloat16 (one 8-byte load, aligned
-// to 8) or 1 (one scalar load). `load_raw` reads
+// address aligned to 16 bytes), 4 for bfloat16 and float16 (one 8-byte
+// load, aligned to 8) or 1 (one scalar load). `load_raw` reads
 // them as they are stored (Raw), `unpack` widens them to float32, `load`
 // does both; `store` writes VEC floats rounded to T. A kernel that keeps
 // many loads in flight holds them as Raw.
@@ -145,6 +162,69 @@ struct Vec<__nv_bfloat16, 8> {
                    pack_bf16x2(f[4], f[5]), pack_bf16x2(f[6], f[7]));
   }
 };
+
+// float16: loads and stores as bfloat16's, of the same widths and under the
+// same alignment; the conversions round to nearest even.
+template <>
+struct Vec<__half, 1> {
+  using Raw = unsigned short;
+  static __device__ __forceinline__ Raw load_raw(const __half* p) {
+    return *reinterpret_cast<const unsigned short*>(p);
+  }
+  static __device__ __forceinline__ void unpack(Raw v, float* f) {
+    f[0] = __half2float(__ushort_as_half(v));
+  }
+  static __device__ __forceinline__ void load(const __half* p, float* f) {
+    unpack(load_raw(p), f);
+  }
+  static __device__ __forceinline__ void store(__half* p, const float* f) {
+    *p = __float2half_rn(f[0]);
+  }
+};
+
+template <>
+struct Vec<__half, 4> {
+  using Raw = uint2;
+  static __device__ __forceinline__ Raw load_raw(const __half* p) {
+    return __ldg(reinterpret_cast<const uint2*>(p));
+  }
+  static __device__ __forceinline__ void unpack(Raw v, float* f) {
+    unpack_half2(v.x, f);
+    unpack_half2(v.y, f + 2);
+  }
+  static __device__ __forceinline__ void load(const __half* p, float* f) {
+    unpack(load_raw(p), f);
+  }
+  static __device__ __forceinline__ void store(__half* p, const float* f) {
+    *reinterpret_cast<uint2*>(p) =
+        make_uint2(pack_half2(f[0], f[1]), pack_half2(f[2], f[3]));
+  }
+};
+
+template <>
+struct Vec<__half, 8> {
+  using Raw = uint4;
+  static __device__ __forceinline__ Raw load_raw(const __half* p) {
+    return __ldg(reinterpret_cast<const uint4*>(p));
+  }
+  static __device__ __forceinline__ void unpack(Raw v, float* f) {
+    unpack_half2(v.x, f);
+    unpack_half2(v.y, f + 2);
+    unpack_half2(v.z, f + 4);
+    unpack_half2(v.w, f + 6);
+  }
+  static __device__ __forceinline__ void load(const __half* p, float* f) {
+    unpack(load_raw(p), f);
+  }
+  static __device__ __forceinline__ void store(__half* p, const float* f) {
+    *reinterpret_cast<uint4*>(p) =
+        make_uint4(pack_half2(f[0], f[1]), pack_half2(f[2], f[3]),
+                   pack_half2(f[4], f[5]), pack_half2(f[6], f[7]));
+  }
+};
+
+// The dtype code of the C entry points' inputs.
+enum DType : int { kFloat32 = 0, kBFloat16 = 1, kFloat16 = 2 };
 
 // The block's threads copy n floats from shared memory to dst, neighbouring
 // threads on neighbouring addresses, as 16-byte vectors when dst is aligned

@@ -20,7 +20,10 @@
 // the camera as the caller holds them: rot [b, 3] (small angle) or [b, 4]
 // (quaternion, geometry/rotations.py), trans [b, 3], f and c [b, 2]. So the
 // wrapper launches nothing but this kernel, after a cast of para_prev_t
-// where the caller holds it in another type than c1's.
+// where the caller holds it in another type than c1's (for float16 a
+// saturating one: clamped to +-65504 first, as the JAX package's
+// `_saturating_cast`, so that a huge parallax does not become inf and
+// inf * 0 NaN in the bilinear weights).
 //
 // What bounds it on the H100. Bytes, by the count that matters for a
 // bound: per pixel C values of c1 and of c2, the sweep centre and the
@@ -36,7 +39,7 @@
 //
 // Forward design (`dscv_forward_kernel`):
 // - Threads of a pixel: `lanes` over the channels of a cut (each a 16-byte
-//   vector: 8 bfloat16 or 4 float32), x the cuts, x `slices` of the 2r+1
+//   vector: 8 bfloat16 or float16, or 4 float32), x the cuts, x `slices` of the 2r+1
 //   hypotheses (slice s takes s, s + slices, ...); a power of two, pixel-
 //   major, so a pixel's threads share one warp or fill whole warps.
 // - Geometry. Each thread computes its pixel's epipolar terms and the
@@ -126,6 +129,7 @@
 //   `sample_position` as the forward's.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 #include <algorithm>
@@ -669,7 +673,7 @@ cudaError_t launch_backward_v(const void* c1, const void* c2,
 }
 
 // 4-channel vectors (16-byte dc2 atomics; 16-byte loads of float32, 8-byte
-// ones of bfloat16) where every vector of a cut is aligned, else scalars.
+// ones of bfloat16 and float16) where every vector of a cut is aligned, else scalars.
 template <typename T>
 cudaError_t launch_backward(const void* c1, const void* c2, const void* para,
                             const void* centre, const void* rot,
@@ -692,8 +696,8 @@ cudaError_t launch_backward(const void* c1, const void* c2, const void* para,
 
 }  // namespace
 
-// c1, c2: [b, h, w, C] and para: [b, h, w, 1], all float32 (is_bf16 = 0) or
-// bfloat16 (is_bf16 = 1); centre: [b, h, w, 1] float32; rot: [b, rot_dim]
+// c1, c2: [b, h, w, C] and para: [b, h, w, 1], all float32 (dtype = 0),
+// bfloat16 (1) or float16 (2); centre: [b, h, w, 1] float32; rot: [b, rot_dim]
 // float32 with rot_dim 3 (small angle) or 4 (quaternion w, x, y, z);
 // trans: [b, 3], focal and principal: [b, 2] float32; cv: [b, h, w,
 // cuts*(2r+1)] float32 (cut-major, hypothesis-minor); para_out: [b, h, w, 1]
@@ -704,19 +708,27 @@ extern "C" int dscv_forward(const void* c1, const void* c2, const void* para,
                             const void* trans, const void* focal,
                             const void* principal, void* cv, void* para_out,
                             int b, int h, int w, int C, int cuts, int r,
-                            int rot_dim, int is_bf16, void* stream) {
+                            int rot_dim, int dtype, void* stream) {
   if (b <= 0 || h < 2 || w < 2 || cuts <= 0 || C % cuts != 0 || r < 0 ||
       (rot_dim != 3 && rot_dim != 4))
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      is_bf16 ? launch<__nv_bfloat16>(c1, c2, para, centre, rot, trans,
-                                      focal, principal, cv, para_out, b, h,
-                                      w, C, cuts, r, rot_dim, s)
-              : launch<float>(c1, c2, para, centre, rot, trans, focal,
-                              principal, cv, para_out, b, h, w, C, cuts, r,
-                              rot_dim, s);
-  return (int)err;
+  switch (dtype) {
+    case kFloat32:
+      return (int)launch<float>(c1, c2, para, centre, rot, trans, focal,
+                                principal, cv, para_out, b, h, w, C, cuts, r,
+                                rot_dim, s);
+    case kBFloat16:
+      return (int)launch<__nv_bfloat16>(c1, c2, para, centre, rot, trans,
+                                        focal, principal, cv, para_out, b, h,
+                                        w, C, cuts, r, rot_dim, s);
+    case kFloat16:
+      return (int)launch<__half>(c1, c2, para, centre, rot, trans, focal,
+                                 principal, cv, para_out, b, h, w, C, cuts, r,
+                                 rot_dim, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 // The VJP of dscv_forward with respect to c1, c2, para and centre. Inputs as
@@ -732,22 +744,28 @@ extern "C" int dscv_backward(const void* c1, const void* c2, const void* para,
                              const void* principal, const void* dcv,
                              const void* dpara_out, void* dc1, void* dc2,
                              void* dcentre, void* dpara, int b, int h, int w,
-                             int C, int cuts, int r, int rot_dim, int is_bf16,
+                             int C, int cuts, int r, int rot_dim, int dtype,
                              void* stream) {
   if (b <= 0 || h < 2 || w < 2 || cuts <= 0 || C % cuts != 0 || r < 0 ||
       (rot_dim != 3 && rot_dim != 4))
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      is_bf16 ? launch_backward<__nv_bfloat16>(
-                    c1, c2, para, centre, rot, trans, focal, principal, dcv,
-                    dpara_out, dc1, dc2, dcentre, dpara, b, h, w, C, cuts, r,
-                    rot_dim, s)
-              : launch_backward<float>(
-                    c1, c2, para, centre, rot, trans, focal, principal, dcv,
-                    dpara_out, dc1, dc2, dcentre, dpara, b, h, w, C, cuts, r,
-                    rot_dim, s);
-  return (int)err;
+  switch (dtype) {
+    case kFloat32:
+      return (int)launch_backward<float>(
+          c1, c2, para, centre, rot, trans, focal, principal, dcv, dpara_out,
+          dc1, dc2, dcentre, dpara, b, h, w, C, cuts, r, rot_dim, s);
+    case kBFloat16:
+      return (int)launch_backward<__nv_bfloat16>(
+          c1, c2, para, centre, rot, trans, focal, principal, dcv, dpara_out,
+          dc1, dc2, dcentre, dpara, b, h, w, C, cuts, r, rot_dim, s);
+    case kFloat16:
+      return (int)launch_backward<__half>(
+          c1, c2, para, centre, rot, trans, focal, principal, dcv, dpara_out,
+          dc1, dc2, dcentre, dpara, b, h, w, C, cuts, r, rot_dim, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 extern "C" const char* dscv_error_string(int err) {

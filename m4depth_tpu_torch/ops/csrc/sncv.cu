@@ -7,9 +7,9 @@
 // For every pixel p, every offset d of the (2r+1)^2 window and every cut of
 // cc = C/cuts channels:
 //     out[p, d*cuts + cut] = leaky(mean_{c in cut} c1[p, c] * c2[p + d, c])
-// with c2 read as zero outside the image. Inputs are NHWC in float32 or
-// bfloat16, products and sums are float32, the output is float32 NHWC with
-// channels offset-major / cut-minor.
+// with c2 read as zero outside the image. Inputs are NHWC in float32,
+// bfloat16 or float16, products and sums are float32, the output is float32
+// NHWC with channels offset-major / cut-minor.
 //
 // What bounds it on the H100: bytes, and of those the output. Each pixel
 // reads C input values of each map (32 to 384 bytes at the d6 384x384
@@ -25,12 +25,12 @@
 //   row: it slides along 2r+2 positions of c2's row y+dy-r, each position
 //   feeding one offset of each pixel, so a c2 vector read from memory feeds
 //   two multiply-adds per channel; c1's values of the two pixels stay in
-//   registers. Channels are read as 16-byte vectors (8 bfloat16 or 4
-//   float32) through the L1 cache, straight into registers: neighbouring
-//   threads read overlapping positions, so the cache, not a shared-memory
-//   stage, serves the reuse, and no thread waits on a block-wide barrier
-//   before it computes. Halo positions outside the image are skipped and
-//   count as zero. Each thread's (pixels, dy, cut) is fixed once from its
+//   registers. Channels are read as 16-byte vectors (8 bfloat16 or
+//   float16, or 4 float32) through the L1 cache, straight into registers:
+//   neighbouring threads read overlapping positions, so the cache, not a
+//   shared-memory stage, serves the reuse, and no thread waits on a
+//   block-wide barrier before it computes. Halo positions outside the
+//   image are skipped and count as zero. Each thread's (pixels, dy, cut) is fixed once from its
 //   index: no division per output. Each output sums its channels in
 //   ascending order, as the plain version's float32 sum does.
 // - Blocks. A block owns a segment of up to 32 pixels of one image row, all
@@ -76,6 +76,7 @@
 //   faster (its level 2 8%).
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 #include <algorithm>
@@ -549,26 +550,32 @@ cudaError_t launch_bwd(const void* g, const void* out, const void* c1,
 
 }  // namespace
 
-// c1, c2: [b, h, w, C] of float32 (is_bf16 = 0) or bfloat16 (is_bf16 = 1);
-// out: [b, h, w, (2r+1)^2 * cuts] float32; 1 <= r <= 4. All contiguous, on
-// the device of `stream`. Returns the CUDA error code of the launch (0 on
-// success).
+// c1, c2: [b, h, w, C] of float32 (dtype = 0), bfloat16 (1) or float16
+// (2); out: [b, h, w, (2r+1)^2 * cuts] float32; 1 <= r <= 4. All
+// contiguous, on the device of `stream`. Returns the CUDA error code of the
+// launch (0 on success).
 extern "C" int sncv_forward(const void* c1, const void* c2, void* out, int b,
                             int h, int w, int C, int cuts, int r, float slope,
-                            int is_bf16, void* stream) {
+                            int dtype, void* stream) {
   if (b <= 0 || h <= 0 || w <= 0 || cuts <= 0 || C % cuts != 0 || r < 0)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      is_bf16 ? launch<__nv_bfloat16>(c1, c2, out, b, h, w, C, cuts, r,
-                                      slope, s)
-              : launch<float>(c1, c2, out, b, h, w, C, cuts, r, slope, s);
-  return (int)err;
+  switch (dtype) {
+    case kFloat32:
+      return (int)launch<float>(c1, c2, out, b, h, w, C, cuts, r, slope, s);
+    case kBFloat16:
+      return (int)launch<__nv_bfloat16>(c1, c2, out, b, h, w, C, cuts, r,
+                                        slope, s);
+    case kFloat16:
+      return (int)launch<__half>(c1, c2, out, b, h, w, C, cuts, r, slope, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 // g, out: [b, h, w, (2r+1)^2 * cuts] float32, the gradient of sncv_forward's
 // output and that output; c1, c2: its inputs; dc1, dc2: [b, h, w, C] in
-// the inputs' type (float32 when is_bf16 = 0, bfloat16 when 1); 1 <= r <= 4.
+// the inputs' type (`dtype` as for sncv_forward); 1 <= r <= 4.
 // With same = 1 (c1 and c2 are one tensor) it writes one gradient, their
 // sum, to dc1, and reads neither c2 nor dc2. All contiguous, on the device
 // of `stream`, which is the current device. Returns the CUDA error code of
@@ -576,17 +583,24 @@ extern "C" int sncv_forward(const void* c1, const void* c2, void* out, int b,
 extern "C" int sncv_backward(const void* g, const void* out, const void* c1,
                              const void* c2, void* dc1, void* dc2, int b,
                              int h, int w, int C, int cuts, int r, int same,
-                             float slope, int is_bf16, void* stream) {
+                             float slope, int dtype, void* stream) {
   if (b <= 0 || h <= 0 || w <= 0 || cuts <= 0 || C % cuts != 0 || r < 0)
     return cudaErrorInvalidValue;
   if (same) c2 = c1, dc2 = dc1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      is_bf16 ? launch_bwd<__nv_bfloat16>(g, out, c1, c2, dc1, dc2, b, h, w,
-                                          C, cuts, r, same, slope, s)
-              : launch_bwd<float>(g, out, c1, c2, dc1, dc2, b, h, w, C, cuts,
-                                  r, same, slope, s);
-  return (int)err;
+  switch (dtype) {
+    case kFloat32:
+      return (int)launch_bwd<float>(g, out, c1, c2, dc1, dc2, b, h, w, C,
+                                    cuts, r, same, slope, s);
+    case kBFloat16:
+      return (int)launch_bwd<__nv_bfloat16>(g, out, c1, c2, dc1, dc2, b, h,
+                                            w, C, cuts, r, same, slope, s);
+    case kFloat16:
+      return (int)launch_bwd<__half>(g, out, c1, c2, dc1, dc2, b, h, w, C,
+                                     cuts, r, same, slope, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 extern "C" const char* sncv_error_string(int err) {

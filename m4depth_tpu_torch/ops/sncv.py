@@ -11,8 +11,8 @@ or raises; the Function's backward launches ``sncv_backward`` (the
 counterpart of the JAX custom VJP ``_sncv_bwd``), whose plain version is
 autograd through ``spatial_cost_volume``.
 
-Both round their inputs to ``cv_dtype`` and then multiply and sum in
-float32, as the Pallas kernel does.
+Both round their inputs to ``cv_dtype`` (float32, bfloat16 or float16) and
+then multiply and sum in float32, as the Pallas kernel does.
 """
 
 from __future__ import annotations
@@ -23,6 +23,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from m4depth_tpu_torch.ops import cost
 from m4depth_tpu_torch.ops._build import CudaKernel, check_kernel_inputs
 
 SNCV_KERNEL = CudaKernel(
@@ -34,7 +35,8 @@ SNCV_BACKWARD_KERNEL = CudaKernel(
     [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
     + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 
-KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+# the input dtypes the kernels take, by the code their C entry points read
+KERNEL_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 
 
 def spatial_cost_volume(
@@ -84,8 +86,10 @@ def spatial_cost_volume(
     return torch.where(cv > 0, cv, cv * leaky_slope)
 
 
-def _is_bf16(t: torch.Tensor) -> int:
-    return int(t.dtype == torch.bfloat16)
+def _dtype_code(t: torch.Tensor) -> int:
+    """The C entry points' code of ``t``'s dtype: 0 float32, 1 bfloat16,
+    2 float16."""
+    return KERNEL_DTYPES.index(t.dtype)
 
 
 def _stream(t: torch.Tensor) -> int:
@@ -102,7 +106,7 @@ def _sncv_forward(a: torch.Tensor, bb: torch.Tensor, search_range: int,
                       device=a.device)
     SNCV_KERNEL.launch(
         a.data_ptr(), bb.data_ptr(), out.data_ptr(), b, h, w, a.shape[3],
-        num_cuts, search_range, float(leaky_slope), _is_bf16(a),
+        num_cuts, search_range, float(leaky_slope), _dtype_code(a),
         _stream(a), device=a.device)
     return out
 
@@ -122,7 +126,7 @@ def _sncv_backward(grad: torch.Tensor, a: torch.Tensor, bb: torch.Tensor,
     SNCV_BACKWARD_KERNEL.launch(
         g.data_ptr(), out.data_ptr(), a.data_ptr(), bb.data_ptr(),
         dc1.data_ptr(), None if same else dc2.data_ptr(), b, h, w, C,
-        num_cuts, search_range, int(same), float(leaky_slope), _is_bf16(a),
+        num_cuts, search_range, int(same), float(leaky_slope), _dtype_code(a),
         _stream(a), device=a.device)
     return dc1, dc2
 
@@ -161,7 +165,20 @@ def spatial_cost_volume_fused(
 
     Same arguments and result as :func:`spatial_cost_volume`. On CUDA
     tensors that require grad, the result carries ``SNCVFunction``'s graph.
+    Under ``cost.counting()`` the call counts its work once.
     """
+    def work():
+        n_pix = c1.shape[0] * c1.shape[1] * c1.shape[2]
+        args = (n_pix, c1.shape[3], num_cuts, search_range,
+                torch.finfo(cv_dtype).bits // 8, c2 is c1)
+        return cost.sncv_forward_work(*args), cost.sncv_backward_work(*args)
+
+    with cost.counted_call("sncv", work, (c1, c2)) as done:
+        return done(_sncv_fused(c1, c2, search_range, num_cuts, cv_dtype,
+                                leaky_slope))
+
+
+def _sncv_fused(c1, c2, search_range, num_cuts, cv_dtype, leaky_slope):
     if c1.device.type == "cpu" and c2.device.type == "cpu":
         return spatial_cost_volume(c1, c2, search_range, num_cuts, cv_dtype,
                                    leaky_slope)

@@ -17,6 +17,7 @@ import torch
 from m4depth_tpu_torch.config import ModelConfig, TrainConfig
 from m4depth_tpu_torch.geometry import Camera, parallax_sweep_flows
 from m4depth_tpu_torch.models import M4Depth
+from m4depth_tpu_torch.ops import spatial_cost_volume
 from m4depth_tpu_torch.train import make_optimizer, make_train_step
 
 # Forward kernels against their plain versions. Both sides round their
@@ -68,15 +69,27 @@ EVAL_METRIC_TOL = dict(rtol=1e-5, atol=1e-6)
 #     atol of one ulp of the largest value covers values that float32
 #     rounding moves across zero. With c1 is c2 autograd adds two such
 #     bfloat16 gradients on each side: two ulps.
-#   The DSCV's sweep-centre gradient is float32 in both dtypes (1e-4). The
+#   float16 outputs: the same rule with float16's ulp, 2^-10 of the value
+#     (one ulp; two with c1 is c2), 8 times tighter than bfloat16's.
+#   The SNCV's reference is its plain version on the backward kernel's own
+#     inputs (``sncv_plain_grads``): the leaky ReLU's derivative taken at
+#     the forward output the kernel is given. Autograd of the whole plain
+#     forward would take it at its own output, and where a correlation is
+#     within rounding of zero the two forwards can fall on either side of
+#     the kink (float16 met one in 2.2M outputs), moving that pixel's
+#     gradient by 0.9 of its term.
+#   The DSCV's sweep-centre gradient is float32 in every dtype (1e-4). The
 #     bilinear sample's derivative jumps where a sample crosses a pixel
 #     boundary, so pixels with a sample within TIE_PX of one, where the
 #     few-ulp position difference can pick either side, are left out of its
 #     comparison (ties are measure-zero).
-BWD_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2.0 ** -7, 2.0 ** -7)}
+BWD_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2.0 ** -7, 2.0 ** -7),
+           torch.float16: (2.0 ** -10, 2.0 ** -10)}
 SNCV_BWD_TOL = {torch.float32: (1e-5, 1e-5),
-                torch.bfloat16: (2.0 ** -7, 2.0 ** -7)}
-SNCV_SAME_BF16_TOL = (2.0 ** -7, 2.0 ** -6)
+                torch.bfloat16: (2.0 ** -7, 2.0 ** -7),
+                torch.float16: (2.0 ** -10, 2.0 ** -10)}
+SNCV_SAME_TOL = {torch.bfloat16: (2.0 ** -7, 2.0 ** -6),
+                 torch.float16: (2.0 ** -10, 2.0 ** -9)}
 TIE_PX = 1e-3
 DSCV_GRADS = ("dc1", "dc2", "dpara", "dcentre")
 
@@ -139,12 +152,27 @@ def assert_grad_close(got: torch.Tensor, ref: torch.Tensor,
     return max_abs_err(got, ref)
 
 
+def sncv_plain_grads(a: torch.Tensor, b: torch.Tensor, radius: int,
+                     cuts: int, dtype: torch.dtype, g: torch.Tensor,
+                     out: torch.Tensor, slope: float = 0.1) -> tuple:
+    """The plain version of the SNCV backward on the backward kernel's
+    inputs: autograd of the plain correlations (``spatial_cost_volume``
+    with a slope of 1, the identity in place of the leaky ReLU) against
+    ``g`` times the leaky ReLU's derivative at ``out``, the forward output
+    whose backward is checked. Returns (da,) when ``b is a``, else
+    (da, db)."""
+    lin = spatial_cost_volume(a, b, radius, cuts, dtype, leaky_slope=1.0)
+    ins = [a] if b is a else [a, b]
+    return torch.autograd.grad(lin, ins, g * torch.where(out > 0, 1.0,
+                                                         slope))
+
+
 def assert_sncv_grads_close(got: Sequence[torch.Tensor],
                             ref: Sequence[torch.Tensor], dtype: torch.dtype,
                             same: bool, what: str = "sncv") -> list:
     """(dc1[, dc2]) of the SNCV backward kernel against the plain version's;
     with ``same`` (c1 is c2) one gradient, the sum of both."""
-    tol = (SNCV_SAME_BF16_TOL if same and dtype == torch.bfloat16
+    tol = (SNCV_SAME_TOL[dtype] if same and dtype in SNCV_SAME_TOL
            else SNCV_BWD_TOL[dtype])
     errs = []
     for g, r, name in zip(got, ref, ("dc1", "dc2")):

@@ -30,7 +30,7 @@ from m4depth_tpu_torch.ops import (
     spatial_cost_volume,
     spatial_cost_volume_fused,
 )
-from m4depth_tpu_torch.ops.sncv import _sncv_backward
+from m4depth_tpu_torch.ops.sncv import KERNEL_DTYPES, _sncv_backward
 from m4depth_tpu_torch.testing import (
     DSCV_CV_TOL,
     DSCV_PARA_TOL,
@@ -40,6 +40,7 @@ from m4depth_tpu_torch.testing import (
     assert_dscv_grads_close,
     assert_sncv_grads_close,
     assert_train_step_close,
+    sncv_plain_grads,
     tie_free_pixels,
 )
 from m4depth_tpu_torch.train import make_optimizer, make_train_step
@@ -78,7 +79,7 @@ LEVEL_IDS = [f"b{b}-{h}x{w}-C{C}-cuts{cuts}"
              for (b, h, w, C), cuts in LEVEL_SHAPES]
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", KERNEL_DTYPES)
 @pytest.mark.parametrize("same", [True, False], ids=["c1_is_c2", "c1_ne_c2"])
 @pytest.mark.parametrize(
     "shape,cuts",
@@ -110,13 +111,13 @@ V1_LEVEL_SHAPES = [((b, h, w, C), 1) for b in (1, 3)
 V1_LEVEL_IDS = [f"v1-b{b}-{h}x{w}-C{C}" for (b, h, w, C), _ in V1_LEVEL_SHAPES]
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", KERNEL_DTYPES)
 @pytest.mark.parametrize("shape,cuts", V1_LEVEL_SHAPES, ids=V1_LEVEL_IDS)
 def test_sncv_radius4_kernel_matches_plain(cuda, shape, cuts, dtype):
     _check_sncv_forward(cuda, shape, cuts, False, dtype, radius=4)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", KERNEL_DTYPES)
 @pytest.mark.parametrize("rot_dim", [3, 4])
 @pytest.mark.parametrize(
     "shape,cuts",
@@ -133,6 +134,24 @@ def test_dscv_kernel_matches_plain(cuda, shape, cuts, rot_dim, dtype):
     assert DSCV_KERNEL.launches == before + 1
     cv_ref, para_ref = _dscv(parallax_sweeping_cv, args, cuts, dtype, cuda)
     assert cv.shape == (b, h, w, 9 * cuts) and para.shape == (b, h, w, 1)
+    torch.testing.assert_close(cv, cv_ref, **DSCV_CV_TOL)
+    torch.testing.assert_close(para, para_ref, **DSCV_PARA_TOL)
+
+
+def test_dscv_fp16_extreme_parallax_stays_finite(cuda):
+    """A previous parallax of 1e6, past float16's 65504 (the JAX package's
+    regression input): the wrapper saturates it before the kernel reads
+    it, so every output is finite, the warped parallax at most 65504, and
+    both equal the plain version's."""
+    args = dscv_inputs(b=1, h=12, w=14, C=8, cuts=1, seed=3)
+    args = args[:2] + (np.full_like(args[2], 1.0e6),) + args[3:]
+    cv, para = _dscv(parallax_sweeping_cv_fused, args, 1, torch.float16,
+                     cuda)
+    cv_ref, para_ref = _dscv(parallax_sweeping_cv, args, 1, torch.float16,
+                             cuda)
+    torch.cuda.synchronize()
+    assert torch.isfinite(cv).all() and torch.isfinite(para).all()
+    assert para.max().item() <= 65504.0
     torch.testing.assert_close(cv, cv_ref, **DSCV_CV_TOL)
     torch.testing.assert_close(para, para_ref, **DSCV_PARA_TOL)
 
@@ -235,7 +254,7 @@ BACKWARD_DSCV_IDS = LEVEL_IDS + ["ragged-24x20-cuts1", "ragged-24x20-cuts4",
                                  "ragged-7x5"]
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", KERNEL_DTYPES)
 @pytest.mark.parametrize("same", [True, False], ids=["c1_is_c2", "c1_ne_c2"])
 @pytest.mark.parametrize("shape,cuts", BACKWARD_SNCV_SHAPES,
                          ids=BACKWARD_SNCV_IDS)
@@ -243,7 +262,7 @@ def test_sncv_backward_kernel_matches_plain(cuda, shape, cuts, same, dtype):
     _check_sncv_backward(cuda, shape, cuts, same, dtype, radius=3)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", KERNEL_DTYPES)
 @pytest.mark.parametrize("shape,cuts", V1_LEVEL_SHAPES, ids=V1_LEVEL_IDS)
 def test_sncv_radius4_backward_kernel_matches_plain(cuda, shape, cuts,
                                                     dtype):
@@ -257,20 +276,23 @@ def _check_sncv_backward(cuda, shape, cuts, same, dtype, radius):
         norm_cuts(rng.randn(*shape), cuts)).to(cuda, dtype)
     g = torch.from_numpy(rng.randn(
         *shape[:3], (2 * radius + 1) ** 2 * cuts).astype(np.float32)).to(cuda)
-    grads, launched = [], []
-    for fn in (spatial_cost_volume_fused, spatial_cost_volume):
-        a = c1.detach().clone().requires_grad_()
-        b = a if same else c2.detach().clone().requires_grad_()
-        before = SNCV_BACKWARD_KERNEL.launches
-        (fn(a, b, radius, cuts, dtype) * g).sum().backward()
-        torch.cuda.synchronize()
-        launched.append(SNCV_BACKWARD_KERNEL.launches - before)
-        grads.append([a.grad] if same else [a.grad, b.grad])
-    assert launched == [1, 0]
-    assert_sncv_grads_close(*grads, dtype, same)
+    a = c1.detach().clone().requires_grad_()
+    b = a if same else c2.detach().clone().requires_grad_()
+    before = SNCV_BACKWARD_KERNEL.launches
+    out = spatial_cost_volume_fused(a, b, radius, cuts, dtype)
+    (out * g).sum().backward()
+    torch.cuda.synchronize()
+    assert SNCV_BACKWARD_KERNEL.launches == before + 1
+    a2 = c1.detach().clone().requires_grad_()
+    b2 = a2 if same else c2.detach().clone().requires_grad_()
+    ref = sncv_plain_grads(a2, b2, radius, cuts, dtype, g, out.detach())
+    torch.cuda.synchronize()
+    assert SNCV_BACKWARD_KERNEL.launches == before + 1
+    assert_sncv_grads_close([a.grad] if same else [a.grad, b.grad], ref,
+                            dtype, same)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", KERNEL_DTYPES)
 def test_sncv_backward_of_autocorrelation_is_one_kernel(cuda, dtype):
     """With c1 is c2 the backward kernel writes the one gradient, the sum
     of both: the Function returns it for its first input alone, so autograd
@@ -302,7 +324,7 @@ def test_sncv_backward_of_autocorrelation_is_one_kernel(cuda, dtype):
 @pytest.mark.parametrize("centres", ["moderate", "far"])
 @pytest.mark.parametrize("want_dpara", [True, False],
                          ids=["dpara", "no_dpara"])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", KERNEL_DTYPES)
 @pytest.mark.parametrize("rot_dim", [3, 4])
 @pytest.mark.parametrize("shape,cuts", BACKWARD_DSCV_SHAPES,
                          ids=BACKWARD_DSCV_IDS)

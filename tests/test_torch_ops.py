@@ -12,6 +12,7 @@ import os
 import subprocess
 import sys
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -46,10 +47,14 @@ def _t(x):
     return torch.from_numpy(np.ascontiguousarray(x))
 
 
-def _jax_dscv(fn, args, cuts, cv_dtype, **kw):
-    c1, c2, para, centre, rot, trans, f, c = (jnp.asarray(a) for a in args)
-    return fn(c1, c2, para, centre, rot, trans, JCamera(f, c), 4,
-              num_cuts=cuts, cv_dtype=cv_dtype, **kw)
+def _jax_dscv(fn, args, cuts, cv_dtype, jit=False, **kw):
+    """``fn`` on ``args``; ``jit``: under ``jax.jit`` (faster for the gather
+    formulation, slower for a Pallas kernel in interpret mode)."""
+    def call(c1, c2, para, centre, rot, trans, f, c):
+        return fn(c1, c2, para, centre, rot, trans, JCamera(f, c), 4,
+                  num_cuts=cuts, cv_dtype=cv_dtype, **kw)
+
+    return (jax.jit(call) if jit else call)(*(jnp.asarray(a) for a in args))
 
 
 def _torch_dscv(fn, args, cuts, cv_dtype, device="cpu"):
@@ -119,7 +124,7 @@ def test_dscv_plain_matches_reference_formulation(cuts):
     hypothesis) of the JAX warped parallax, to float32 rounding."""
     args = _dscv_inputs(cuts=cuts, seed=cuts)
     cv_ref, pw_ref = _jax_dscv(jcv.parallax_sweeping_cv, args, cuts,
-                               jnp.float32)
+                               jnp.float32, jit=True)
     cv, pw = _torch_dscv(parallax_sweeping_cv, args, cuts, torch.float32)
     assert cv.shape == (2, 12, 16, 9 * cuts) and pw.shape == (2, 12, 16, 1)
     np.testing.assert_allclose(cv.numpy(), np.asarray(cv_ref),
@@ -154,7 +159,8 @@ def _jax_sncv_grads(c1, c2, g, cuts, same):
                                      cv_dtype=jnp.float32)
         return (cv * jnp.asarray(g)).sum()
 
-    return jax.grad(loss, argnums=(0, 1))(jnp.asarray(c1), jnp.asarray(c2))
+    return jax.jit(jax.grad(loss, argnums=(0, 1)))(jnp.asarray(c1),
+                                                    jnp.asarray(c2))
 
 
 @pytest.mark.parametrize("same", [True, False], ids=["c1_is_c2", "c1_ne_c2"])
@@ -217,8 +223,11 @@ def test_dscv_gradients_match_jax(cuts):
         return (cv * x["gcv"]).sum() + (pw[..., 4:5] * x["gpw"]).sum()
 
     jin = [jnp.asarray(x[k]) for k in ("c1", "c2", "para", "centre")]
-    ref_gather = jax.grad(lambda *a: jloss(jcv.parallax_sweeping_cv, *a),
-                          argnums=(0, 1, 2, 3))(*jin)
+    # jitted: op by op the gather formulation's gradient compiles each of
+    # its many small ops on its own
+    ref_gather = jax.jit(jax.grad(
+        lambda *a: jloss(jcv.parallax_sweeping_cv, *a),
+        argnums=(0, 1, 2, 3)))(*jin)
     split = functools.partial(jcv.parallax_sweeping_cv_split, n_chunks=3,
                               bwd_impl="pallas")
     ref_pallas = jax.grad(lambda *a: jloss(split, *a),
@@ -271,8 +280,11 @@ def test_dscv_gradient_regimes_match_jax(regime):
         return (cv * x["gcv"]).sum() + (pw[..., 4:5] * x["gpw"]).sum()
 
     jin = [jnp.asarray(x[k]) for k in ("c1", "c2", "para", "centre")]
-    ref_gather = jax.grad(lambda *a: jloss(jcv.parallax_sweeping_cv, *a),
-                          argnums=(0, 1, 2, 3))(*jin)
+    # jitted: op by op the gather formulation's gradient compiles each of
+    # its many small ops on its own
+    ref_gather = jax.jit(jax.grad(
+        lambda *a: jloss(jcv.parallax_sweeping_cv, *a),
+        argnums=(0, 1, 2, 3)))(*jin)
     split = functools.partial(jcv.parallax_sweeping_cv_split, n_chunks=3,
                               bwd_impl="pallas")
     ref_pallas = jax.grad(lambda *a: jloss(split, *a),
