@@ -14,12 +14,14 @@ exits non-zero and prints no result line:
 2. each forward kernel against its plain PyTorch version on the card, at
    the six decoder-level shapes of the d6 model at 384x384 (b=1), in
    float32, bfloat16 and float16; and the V1 model's SNCV (a 9x9 cross-
-   correlation of one cut, c1 != c2) at the same six shapes, b=1 and b=3;
+   correlation of one cut, c1 != c2) at the same six shapes, b=1 and b=3,
+   and at the edge shapes of its launch plans
+   (``testing.V1_SNCV_EDGE_SHAPES``);
 3. each backward kernel against its plain version (the SNCV's on the
    kernel forward's output, the DSCV's autograd of the plain forward), at
    the six level shapes with b=3 (the training batch), in the three
    dtypes, for every input gradient; and V1's SNCV backward (two
-   gradients) at b=1 and b=3;
+   gradients) at b=1 and b=3 and at the edge shapes;
 4. the d6 model at 128x128 (b=2, 3 frames, one per-element reset) on the
    card (kernels) against the same weights on the CPU (plain versions),
    in float32, on the card once with cuDNN and once without it;
@@ -65,9 +67,11 @@ exits non-zero and prints no result line:
 12. the V1 model: d6 at 128x128 on the card against the CPU (as phase 4),
    streaming ``M4DepthV1.step`` at 384x384 b=1 bf16 (as phase 6: 6 SNCV
    forwards a frame, no DSCV) and its training step at b=3 T=4 (as phase
-   8: 24 SNCV forwards and backwards a step, no DSCV); then the training
-   step at T=8 without and with remat (``remat_policy`` "all", then
-   "dscv"): ms/step and peak memory;
+   8: 24 SNCV forwards and backwards a step, no DSCV), each with a
+   profiler window as phase 7's (device busy, launches, the SNCV's share
+   of the busy time, beside the card's name and power limit); then the
+   training step at T=8 without and with remat (``remat_policy`` "all",
+   then "dscv"): ms/step and peak memory;
 13. the geometry gates: ``m4depth_tpu_torch.tools.synthetic_validation
    --mode overfit`` with M4Depth (1000 steps) and with V1 (1200 steps),
    each of which must print ``GEOMETRY VALIDATION PASSED``;
@@ -156,6 +160,7 @@ from m4depth_tpu_torch.testing import (
     MODEL_TOL,
     SNCV_TOL,
     STEP_LOSS_RTOL,
+    V1_SNCV_EDGE_SHAPES,
     assert_dscv_grads_close,
     assert_sncv_grads_close,
     assert_step_close,
@@ -280,6 +285,17 @@ def level_specs(cfg: ModelConfig, b: int = 1, v1: bool = False):
     return specs
 
 
+def v1_specs(cfg: ModelConfig):
+    """V1's SNCV shapes as ``level_specs`` gives them: the level shapes at
+    b=1 and b=TRAIN_B, then the edge shapes of its launch plans
+    (``testing.V1_SNCV_EDGE_SHAPES``) as level 0."""
+    specs = [s for b in (1, TRAIN_B) for s in level_specs(cfg, b, v1=True)]
+    for b, h, w, C in V1_SNCV_EDGE_SHAPES:
+        f = torch.full((b, 2), FOCAL)
+        specs.append((0, h, w, C, 1, Camera(f, f.clone())))
+    return specs
+
+
 def unit_cuts(g: torch.Generator, shape, cuts: int) -> torch.Tensor:
     """Random features, L2-normalised per cut as the model feeds both ops."""
     b, h, w, C = shape
@@ -383,26 +399,28 @@ def phase_kernels_vs_plain(cfg: ModelConfig, dev) -> dict:
     float32, bfloat16 and float16; returns the largest error seen per
     kernel (``err_key``)."""
     worst = forwards_vs_plain(cfg, dev, 1)
-    # V1: radius 4, one cut, the current features against the warped ones
-    for b in (1, TRAIN_B):
-        for spec in level_specs(cfg, b, v1=True):
-            level, h, w, C = spec[:4]
-            x = op_inputs(spec, dev, seed=level, sncv_radius=V1_SEARCH)
-            errs = []
-            for dtype in KERNEL_DTYPES:
-                c1, c2 = x["c1"].to(dtype), x["c2"].to(dtype)
-                out = spatial_cost_volume_fused(c1, c2, V1_SEARCH, 1, dtype,
-                                                LEAKY)
-                ref = spatial_cost_volume(c1, c2, V1_SEARCH, 1, dtype, LEAKY)
-                torch.cuda.synchronize()
-                check(out.shape == (b, h, w, 81), f"v1 sncv {out.shape}")
-                torch.testing.assert_close(out, ref, **SNCV_TOL)
-                errs.append(max_abs_err(out, ref))
-                sk = err_key("sncv_forward", dtype)
-                worst[sk] = max(worst[sk], errs[-1])
-            log(f"  V1 level {level} b={b} {h}x{w} C={C} r={V1_SEARCH} "
-                f"cuts=1 c1 != c2: sncv max|err| {errs[0]:.3e} (float32), "
-                f"{errs[1]:.3e} (bfloat16), {errs[2]:.3e} (float16)")
+    # V1: radius 4, one cut, the current features against the warped ones,
+    # at the level shapes and at the edge shapes of its launch plans
+    for i, spec in enumerate(v1_specs(cfg)):
+        level, h, w, C = spec[:4]
+        b = spec[5].f.shape[0]
+        x = op_inputs(spec, dev, seed=level or 50 + i, sncv_radius=V1_SEARCH)
+        errs = []
+        for dtype in KERNEL_DTYPES:
+            c1, c2 = x["c1"].to(dtype), x["c2"].to(dtype)
+            out = spatial_cost_volume_fused(c1, c2, V1_SEARCH, 1, dtype,
+                                            LEAKY)
+            ref = spatial_cost_volume(c1, c2, V1_SEARCH, 1, dtype, LEAKY)
+            torch.cuda.synchronize()
+            check(out.shape == (b, h, w, 81), f"v1 sncv {out.shape}")
+            torch.testing.assert_close(out, ref, **SNCV_TOL)
+            errs.append(max_abs_err(out, ref))
+            sk = err_key("sncv_forward", dtype)
+            worst[sk] = max(worst[sk], errs[-1])
+        log(f"  V1 {f'level {level}' if level else 'edge'} b={b} {h}x{w} "
+            f"C={C} r={V1_SEARCH} cuts=1 c1 != c2: sncv max|err| "
+            f"{errs[0]:.3e} (float32), {errs[1]:.3e} (bfloat16), "
+            f"{errs[2]:.3e} (float16)")
     return worst
 
 
@@ -467,29 +485,29 @@ def phase_backward_vs_plain(cfg: ModelConfig, dev) -> dict:
             log(f"  level {level} {h}x{w} C={C} cuts={cuts} {name}, "
                 f"max|kernel - plain| of dc1[, dc2][, dpara, dcentre]: "
                 + "; ".join(line))
-    for b in (1, TRAIN_B):
-        for spec in level_specs(cfg, b, v1=True):
-            level, h, w, C = spec[:4]
-            x = op_inputs(spec, dev, seed=200 + level, sncv_radius=V1_SEARCH)
-            line = []
-            for dtype in KERNEL_DTYPES:
-                ins = [x["c1"].to(dtype).requires_grad_(),
-                       x["c2"].to(dtype).requires_grad_()]
-                out = spatial_cost_volume_fused(*ins, V1_SEARCH, 1, dtype,
-                                                LEAKY)
-                grads = [torch.autograd.grad(out, ins, x["g_sncv"]),
-                         sncv_plain_grads(*ins, V1_SEARCH, 1, dtype,
-                                          x["g_sncv"], out.detach(), LEAKY)]
-                torch.cuda.synchronize()
-                errs = assert_sncv_grads_close(*grads, dtype, False,
-                                               f"v1 sncv {dtype}")
-                sk = err_key("sncv_backward", dtype)
-                worst[sk] = max(worst[sk], *errs)
-                line.append(f"{str(dtype)[6:]} " + ", ".join(
-                    f"{e:.3e}" for e in errs))
-            log(f"  V1 level {level} b={b} {h}x{w} C={C} r={V1_SEARCH} "
-                f"cuts=1, max|kernel - plain| of dc1, dc2: "
-                + "; ".join(line))
+    for i, spec in enumerate(v1_specs(cfg)):
+        level, h, w, C = spec[:4]
+        b = spec[5].f.shape[0]
+        x = op_inputs(spec, dev, seed=200 + (level or 50 + i),
+                      sncv_radius=V1_SEARCH)
+        line = []
+        for dtype in KERNEL_DTYPES:
+            ins = [x["c1"].to(dtype).requires_grad_(),
+                   x["c2"].to(dtype).requires_grad_()]
+            out = spatial_cost_volume_fused(*ins, V1_SEARCH, 1, dtype, LEAKY)
+            grads = [torch.autograd.grad(out, ins, x["g_sncv"]),
+                     sncv_plain_grads(*ins, V1_SEARCH, 1, dtype,
+                                      x["g_sncv"], out.detach(), LEAKY)]
+            torch.cuda.synchronize()
+            errs = assert_sncv_grads_close(*grads, dtype, False,
+                                           f"v1 sncv {dtype}")
+            sk = err_key("sncv_backward", dtype)
+            worst[sk] = max(worst[sk], *errs)
+            line.append(f"{str(dtype)[6:]} " + ", ".join(
+                f"{e:.3e}" for e in errs))
+        log(f"  V1 {f'level {level}' if level else 'edge'} b={b} {h}x{w} "
+            f"C={C} r={V1_SEARCH} cuts=1, max|kernel - plain| of dc1, dc2: "
+            + "; ".join(line))
     return worst
 
 
@@ -763,10 +781,12 @@ def phase_main_path(dev, family=M4Depth, per_frame=None,
 # -- phase 7 ----------------------------------------------------------------
 
 
-def phase_profile(run, n: int, unit: str) -> None:
+def phase_profile(run, n: int, unit: str) -> dict:
     """Device time by kernel over ``n`` calls of ``run`` (one frame or one
-    step each), the device's busy share of the window's wall time, and the
-    kernel launches per call."""
+    step each), the device's busy share of the window's wall time, the
+    kernel launches per call and the cost-volume kernels' share of the busy
+    time; returns those per call (empty if the profiler saw no device
+    time)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -793,12 +813,17 @@ def phase_profile(run, n: int, unit: str) -> None:
     if not rows or busy <= 0:
         log("  profiler recorded no device time: device breakdown not "
             "measured")
-        return
+        return {}
     rows.sort(reverse=True)
     log(f"  {n} {unit}s, wall {wall_us / n:.1f} us/{unit}, device busy "
         f"{busy / n:.1f} us/{unit} ({100 * busy / wall_us:.1f}% busy, "
         f"{100 - 100 * busy / wall_us:.1f}% idle), "
         f"{sum(r[1] for r in rows) / n:.0f} kernels/{unit}")
+    cv = {k: sum(r[0] for r in rows if k in r[2]) / n
+          for k in ("sncv", "dscv")}
+    log(f"  [{gpu_name_and_power_limit()}] cost-volume kernels: " + ", ".join(
+        f"{k} {us:.1f} us/{unit} ({100 * us * n / busy:.1f}% of busy)"
+        for k, us in cv.items()))
     for us, count, key in rows[:15]:
         log(f"    {us / n:9.2f} us/{unit} {100 * us / busy:5.1f}%  "
             f"x{count / n:g}/{unit}  {key[:90]}")
@@ -806,6 +831,9 @@ def phase_profile(run, n: int, unit: str) -> None:
         if any(k in key for k in ("sncv", "dscv")):
             log(f"    {us / n:9.2f} us/{unit} {100 * us / busy:5.1f}%  "
                 f"x{count / n:g}/{unit}  {key[:90]}")
+    return dict(wall_us=wall_us / n, busy_us=busy / n,
+                kernels=sum(r[1] for r in rows) / n,
+                **{f"{k}_us": us for k, us in cv.items()})
 
 
 # -- phase 8 ----------------------------------------------------------------
@@ -2480,8 +2508,12 @@ def main() -> int:
     log("   V1 serving path, streaming M4DepthV1.step d6 384x384 b=1 bf16")
     v1_serve = phase_main_path(dev, M4DepthV1, {
         k: 6 if k == "sncv_forward" else 0 for k in KERNELS})
+    log("   profile of V1's serving path")
+    v1_serve_prof = phase_profile(v1_serve["run"], PROFILED_FRAMES, "frame")
     log(f"   V1 training path, d6 384x384 b={TRAIN_B} T={TRAIN_T} bf16/bf16")
     v1_train = phase_train_path(dev, M4DepthV1, per_step=v1_launches(TRAIN_T))
+    log("   profile of V1's training path")
+    v1_train_prof = phase_profile(v1_train["run"], PROFILED_STEPS, "step")
     log(f"   the training step at T={REMAT_T}, b={TRAIN_B}, without and with "
         "remat")
     remat = phase_remat(dev)
@@ -2634,6 +2666,9 @@ def main() -> int:
                     "gates": {m: {k: v for k, v in g.items()
                                   if k != "launches"}
                               for m, g in gates.items()}}))
+    log(json.dumps({"v1_profile": {"serving_per_frame": v1_serve_prof,
+                                   "training_per_step": v1_train_prof,
+                                   "card": gpu_name_and_power_limit()}}))
     log(f"smoke time {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

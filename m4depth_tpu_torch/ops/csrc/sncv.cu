@@ -74,6 +74,49 @@
 //   7 rows across threads. Measured (NVIDIA H100 80GB HBM3, 700 W): a
 //   56 KB tile budget read 25% slower in all than 100 KB, and 128 KB 2%
 //   faster (its level 2 8%).
+//
+// V1's shapes: radius 4, one cut of 16 to 192 channels, c1 != c2. The
+// window is 9x9, 81 floats a pixel out, and a cut is the whole C. What
+// bounded the designs above there:
+// - Forward: a thread sums a whole cut, so at the deep levels (C = 64 to
+//   192) one thread's chain ran 8-24 vectors x 10 positions, in blocks of
+//   3-54 threads: latency, 20-33 us a call against a bound under 1.2 us.
+//   Now a cut of more than kOneThreadCut channels is split over 2^k lanes
+//   (SPLIT; kLaneVecs to 2 kLaneVecs - 1 vectors each, one each where a
+//   call has at most kFewPixels pixels): the lanes add their 2 x 9 partial
+//   sums with __shfl_xor_sync before the leaky ReLU, and such blocks take
+//   one window row each (more, smaller blocks). Cuts of
+//   kOneThreadCut channels or fewer (M4Depth's, V1's levels 1-2) run the
+//   code above unchanged (SPLIT false: a runtime lane count cost those
+//   shapes 10-20%).
+// - Backward: 81 floats a pixel make a 16x8 tile's halo of g' 124 KB, one
+//   block an SM; g and out were staged with 4-byte loads (81 is no multiple
+//   of 4) and a division per float, and read 3.0 times at level 1; the
+//   neighbours' vectors came through an L1 left small by the stage. The
+//   one-cut backward (`sncv_backward_band_kernel`) keeps the gathers and
+//   their order, and:
+//   - keeps of a halo row k rows above or below the tile only the R + 1 - k
+//     window rows whose offsets point back into it (10 of 36 rows' worth at
+//     radius 4), so a 16x8 tile's g' is 80 KB and two blocks fit an SM;
+//     where an image gives kBigTiles tiles of 16x16 or more (V1's levels
+//     1-2), 16x16 tiles and one block an SM, fewer halo rows a tile row;
+//   - stages g' with 16-byte loads of whole row ranges, 8 rows' loads in
+//     flight a thread, no division for the tile's own rows;
+//   - copies its chunk of c1 and c2 over the halo to shared memory with
+//     cp.async while g' is staged, so the gathers read only shared memory;
+//   - on small images shrinks the tile (down to 2x2) before it cuts the
+//     channels into chunks across blocks (each chunk stages g' again), and
+//     splits the window's rows into groups of neighbouring lanes (shuffle
+//     sums), so each level launches at least a wave of blocks.
+//   On an image one tile wide where the tile kernel above splits the
+//   window's rows over nine thread groups (V1's level 5), that kernel stays:
+//   12.0 against 17.1 us at b=3. What bounds the one-cut kernel now is the
+//   staging: per-block %globaltimer stamps (an instrumented copy) put a
+//   block's staging well above its gathers.
+//   Tried and dropped (each in turns with the kept design, NVIDIA H100
+//   80GB HBM3, 700 W): cp.async for the tile rows of g (8% slower in all),
+//   16 rows' loads in flight (registers spill; 19%), 16x4 tiles (22%),
+//   128-thread row groups (12%).
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -99,23 +142,81 @@ constexpr long long kFewThreads = 32 * 1024;
 constexpr int kForwardThreads = 256;
 constexpr int kMaxSegment = 32;
 constexpr long long kWave = 132;
+// the forward: channels of a cut above which its vectors are split over
+// lanes; the vectors a lane takes at least, one at up to kFewPixels pixels
+// (there latency, not the number of threads, sets the time); the most lanes
+// a cut takes
+constexpr int kOneThreadCut = 32;
+constexpr int kLaneVecs = 2;
+constexpr long long kFewPixels = 2048;
+constexpr int kMaxLanes = 32;
+// the one-cut backward (V1's): threads of a block at most; images up to
+// kBandMaxWidth pixels wide are one tile wide, wider ones cut into tiles
+// kBandTileWidth wide; rows of a tile at most, and the shared memory above
+// which a tile loses rows: two blocks an SM, or, where an image gives
+// kBigTiles such tiles or more, one block an SM with twice the rows
+constexpr int kBandThreads = 512;
+// threads of a block that splits the window's rows into groups, at most
+// (register-bound: blocks above it ran one an SM, in two waves)
+constexpr int kRowGroupThreads = 256;
+constexpr int kBandMaxWidth = 32;
+constexpr int kBandTileWidth = 16;
+constexpr int kBandRows = 8;
+constexpr size_t kBandSmem = 110 * 1024;
+constexpr int kBigRows = 16;
+constexpr size_t kBigSmem = 200 * 1024;
+constexpr long long kBigTiles = kWave / 2;
+// rows of g' whose 16-byte loads a thread of the one-cut backward keeps in
+// flight together
+constexpr int kStageRows = 8;
+
+// Copies one Raw from device memory to shared memory without a stop in
+// registers: cp.async (4, 8 or 16 bytes), in flight until cp_async_wait;
+// a plain load and store for 2 bytes.
+template <typename Raw>
+__device__ __forceinline__ void copy_async(Raw* dst, const Raw* src) {
+  if constexpr (sizeof(Raw) >= 4) {
+    const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(s),
+                 "l"(src), "n"(sizeof(Raw)));
+  } else {
+    *dst = *src;
+  }
+}
+
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// The bits of this thread's warp that name live threads (1D blocks whose
+// last warp may be partial), for the shuffles that every thread reaches.
+__device__ __forceinline__ unsigned live_lanes() {
+  const int n = (int)blockDim.x - (int)(threadIdx.x & ~31u);
+  return n >= 32 ? 0xffffffffu : (1u << n) - 1u;
+}
 
 // Grid: x over (image row, segment of `seg` pixels), y over groups of `dys`
-// rows of the window. Block: cuts x seg/2 x dys threads, the cut fastest.
-// Shared memory: the block's outputs, [seg][dys][2R+1][cuts] floats.
-template <typename T, int VEC, int R>
+// rows of the window. Block: lanes x cuts x seg/2 x dys threads, the lane
+// fastest; with SPLIT the `lanes_` threads of a (pair, row, cut) split the
+// cut's vectors and add their sums with shuffles, else one thread takes
+// the cut. Shared memory: the block's outputs, [seg][dys][2R+1][cuts]
+// floats.
+template <typename T, int VEC, int R, bool SPLIT>
 __global__ void __launch_bounds__(kForwardThreads)
 sncv_forward_kernel(const T* __restrict__ c1, const T* __restrict__ c2,
                     float* __restrict__ out, int h, int w, int C, int cuts,
-                    int seg, int nseg, int dys, float slope) {
+                    int seg, int nseg, int dys, int lanes_, float slope) {
   constexpr int S = 2 * R + 1;
   extern __shared__ __align__(16) float stage[];
+  const int lanes = SPLIT ? lanes_ : 1;
   const int cc = C / cuts;
   const int npairs = seg >> 1;
   const int t = threadIdx.x;
-  const int cut = t % cuts;
-  const int pair = (t / cuts) % npairs;
-  const int dyl = t / (cuts * npairs);
+  const int lane = t & (lanes - 1);
+  const int grp = t / lanes;
+  const int cut = grp % cuts;
+  const int pair = (grp / cuts) % npairs;
+  const int dyl = grp / (cuts * npairs);
   const int dy = blockIdx.y * dys + dyl;
   const long long row = blockIdx.x / nseg;            // b * h + y
   const int x0 = (int)(blockIdx.x - row * nseg) * seg;
@@ -130,7 +231,7 @@ sncv_forward_kernel(const T* __restrict__ c1, const T* __restrict__ c2,
     const bool has_b = xa + 1 < w;
     const T* a_ptr = c1 + (row * w + xa) * C + cut * cc;
     const T* q_row = c2 + (row + dy - R) * w * C + cut * cc;
-    for (int c = 0; c < cc; c += VEC) {
+    for (int c = lane * VEC; c < cc; c += lanes * VEC) {
       float va[VEC], vb[VEC];
       Vec<T, VEC>::load(a_ptr + c, va);
       if (has_b) {
@@ -159,16 +260,31 @@ sncv_forward_kernel(const T* __restrict__ c1, const T* __restrict__ c2,
     }
   }
 
-  // stage [pixel][dy of the block][dx][cut]; pixels past the image's edge
-  // land in slots that are not stored
+  // the lanes' partial sums, added across the group (every lane ends with
+  // the totals)
+  if (SPLIT) {
+    const unsigned mask = live_lanes();
+    for (int o = lanes >> 1; o > 0; o >>= 1) {
+#pragma unroll
+      for (int i = 0; i < S; ++i) {
+        acc_a[i] += __shfl_xor_sync(mask, acc_a[i], o);
+        acc_b[i] += __shfl_xor_sync(mask, acc_b[i], o);
+      }
+    }
+  }
+
+  // stage [pixel][dy of the block][dx][cut], lane k the outputs i = k mod
+  // lanes of each pixel; pixels past the image's edge land in slots that
+  // are not stored
   const float inv_cc = 1.f / (float)cc;
   const int run = dys * S * cuts;                      // floats a pixel
   float* st = stage + (2 * pair) * run + dyl * S * cuts + cut;
 #pragma unroll
   for (int i = 0; i < S; ++i) {
     const float a = acc_a[i] * inv_cc, b = acc_b[i] * inv_cc;
-    st[i * cuts] = a > 0.f ? a : a * slope;
-    st[run + i * cuts] = b > 0.f ? b : b * slope;
+    if ((i & (lanes - 1)) == lane) st[i * cuts] = a > 0.f ? a : a * slope;
+    if (((S + i) & (lanes - 1)) == lane)
+      st[run + i * cuts] = b > 0.f ? b : b * slope;
   }
   __syncthreads();
 
@@ -337,25 +453,281 @@ sncv_backward_kernel(const float* __restrict__ g,
   }
 }
 
+// Floats of one row of g' staged by the one-cut backward: hw pixels of n
+// window rows (S floats each). A tile's own rows keep every row of the
+// window, each pixel S^2 floats (odd: neighbouring pixels in other banks),
+// with room to start the row where its 16-byte loads fall aligned; a halo
+// row keeps fewer, each pixel at an odd stride. A multiple of 4 floats, so
+// every row starts aligned to 16 bytes.
+__host__ __device__ __forceinline__ int band_row_floats(int hw, int n,
+                                                        int S) {
+  return n == S ? ((hw * S * S + 9) & ~3) : ((hw * ((n * S) | 1) + 3) & ~3);
+}
+
+// Window rows of g' that the one-cut backward keeps of image row yy, for the
+// tile's rows [y0, ye): all S of its own rows; of the halo row k rows above
+// (below) the tile, the R + 1 - k rows whose offsets point back into the
+// tile, the last (first) of each pixel's.
+template <int R>
+__device__ __forceinline__ int band_kept(int yy, int y0, int ye) {
+  return yy < y0 ? R + 1 - (y0 - yy) : yy < ye ? 2 * R + 1 : R + ye - yy;
+}
+
+// The VJP of sncv_forward for one cut and two gradients (V1's SNCV), with
+// the same gathers as sncv_backward_kernel:
+//     dc1[q, c] = sum_d g'[q, d]      * c2[q + d, c]
+//     dc2[q, c] = sum_d g'[q + d, -d] * c1[q + d, c]
+// Grid: x over (image, tile row, tile column, chunk of cv channel vectors),
+// the chunk fastest. Block: threads over (group of window rows, vector of
+// the chunk, pixel of the tw x th tile), the row group fastest, so a
+// pixel's nr groups are neighbouring lanes and add their sums with
+// shuffles. Shared memory: g' of the tile and its halo, row by row
+// (`band_row_floats`, `band_kept`), and a table of where each row starts.
+template <typename T, int VEC, int R>
+__global__ void __launch_bounds__(kBandThreads)
+sncv_backward_band_kernel(const float* __restrict__ g,
+                          const float* __restrict__ out,
+                          const T* __restrict__ c1, const T* __restrict__ c2,
+                          T* __restrict__ dc1, T* __restrict__ dc2, int h,
+                          int w, int C, int tw, int th, int ntx, int nty,
+                          int cv, int nchunks, int nr, int c_at, int vec4,
+                          float slope) {
+  using Raw = typename Vec<T, VEC>::Raw;
+  constexpr int S = 2 * R + 1;
+  constexpr int S2 = S * S;
+  extern __shared__ __align__(16) float sg[];
+  __shared__ int row_at[kBigRows + 2 * R];    // where g' of a row starts
+  const int t = threadIdx.x;
+  int bx = blockIdx.x;
+  const int chunk = bx % nchunks;
+  bx /= nchunks;
+  const int tx = bx % ntx;
+  bx /= ntx;
+  const int ty = bx % nty;
+  const int bi = bx / nty;
+  const long long img = (long long)bi * h * w;
+  const int x0 = tx * tw, y0 = ty * th;
+  const int xe = min(x0 + tw, w), ye = min(y0 + th, h);
+  const int hx0 = max(x0 - R, 0), hx1 = min(xe + R, w);
+  const int hy0 = max(y0 - R, 0), hy1 = min(ye + R, h);
+  const int hw = hx1 - hx0, nrows = hy1 - hy0;
+  const int vecs = C / VEC;
+  // this block's chunk of c1 and c2 over the halo, [row][pixel][vector]
+  Raw* cs1 = reinterpret_cast<Raw*>(sg + c_at);
+  Raw* cs2 = cs1 + nrows * hw * cv;
+
+  // 0. the table: a tile row starts `shift` floats into its space, where
+  // its pixels' floats fall as they do in g (mod 16 bytes)
+  for (int r = t; r < nrows; r += blockDim.x) {
+    int at = 0;
+    for (int yy = hy0; yy < hy0 + r; ++yy)
+      at += band_row_floats(hw, band_kept<R>(yy, y0, ye), S);
+    const int yy = hy0 + r;
+    if (yy >= y0 && yy < ye)
+      at += (int)(((img + (long long)yy * w + hx0) * S2) & 3);
+    row_at[r] = at;
+  }
+  // the features: each thread one vector of a pixel, in every row, copied
+  // without a stop in registers, in flight while g' is staged
+  for (int i = t; i < hw * cv; i += blockDim.x) {
+    const int px = i / cv, jv = i - px * cv;
+    if (chunk * cv + jv >= vecs) continue;
+    const long long at =
+        (img + (long long)hy0 * w + hx0 + px) * C + (chunk * cv + jv) * VEC;
+    for (int r = 0; r < nrows; ++r) {
+      const long long a = at + (long long)r * w * C;
+      copy_async(cs1 + r * hw * cv + i, reinterpret_cast<const Raw*>(c1 + a));
+      copy_async(cs2 + r * hw * cv + i, reinterpret_cast<const Raw*>(c2 + a));
+    }
+  }
+  __syncthreads();
+
+  // 1. g' = g * (out > 0 ? 1 : slope) / C of the staged rows. Each row of
+  // the halo is one contiguous range of g and of out: 16-byte loads from
+  // the aligned vector that holds its first float to the one that holds its
+  // last, kStageRows rows' loads in flight together, of a halo row only the
+  // vectors that hold a float it keeps (the floats around a tile row land in
+  // its space's margin); else 4-byte loads, float by float.
+  const float inv_cc = 1.f / (float)C;
+  auto leaky = [slope, inv_cc](float gv, float ov) {
+    return (ov > 0.f ? gv : gv * slope) * inv_cc;
+  };
+  // of row r: the floats of a pixel it keeps, [lo, lo + n), at `stride` a
+  // pixel from row_at[r]
+  auto kept_floats = [&](int r, int* lo, int* n, int* stride) {
+    const int yy = hy0 + r;
+    const int k = band_kept<R>(yy, y0, ye);
+    *lo = yy < y0 ? (S - k) * S : 0;
+    *n = k * S;
+    *stride = k == S ? S2 : (k * S) | 1;
+  };
+  const int n_row = hw * S2;
+  if (vec4) {
+    const int n4 = (n_row + 6) >> 2;
+    for (int i = t; i < n4; i += blockDim.x) {
+      for (int r0 = 0; r0 < nrows; r0 += kStageRows) {
+        float4 gv[kStageRows], ov[kStageRows];
+        unsigned todo = 0;
+#pragma unroll
+        for (int u = 0; u < kStageRows; ++u) {
+          const int r = r0 + u;
+          if (r >= nrows) continue;
+          const long long at = (img + (long long)(hy0 + r) * w + hx0) * S2;
+          const int e0 = 4 * i - (int)(at & 3);
+          if (e0 >= n_row) continue;
+          int lo, n, stride;
+          kept_floats(r, &lo, &n, &stride);
+          bool any = n == S2;
+          for (int q = 0; q < 4 && !any; ++q) {
+            const int e = e0 + q;
+            const int o = e - (e / S2) * S2 - lo;
+            any = e >= 0 && e < n_row && o >= 0 && o < n;
+          }
+          if (!any) continue;
+          gv[u] = __ldg(reinterpret_cast<const float4*>(g + (at & ~3LL)) + i);
+          ov[u] = __ldg(reinterpret_cast<const float4*>(out + (at & ~3LL)) + i);
+          todo |= 1u << u;
+        }
+#pragma unroll
+        for (int u = 0; u < kStageRows; ++u) {
+          if (!(todo >> u & 1)) continue;
+          const int r = r0 + u;
+          const long long at = (img + (long long)(hy0 + r) * w + hx0) * S2;
+          const int shift = (int)(at & 3);
+          const float v[4] = {leaky(gv[u].x, ov[u].x), leaky(gv[u].y, ov[u].y),
+                              leaky(gv[u].z, ov[u].z), leaky(gv[u].w, ov[u].w)};
+          int lo, n, stride;
+          kept_floats(r, &lo, &n, &stride);
+          if (n == S2) {
+            reinterpret_cast<float4*>(sg + row_at[r] - shift)[i] =
+                make_float4(v[0], v[1], v[2], v[3]);
+            continue;
+          }
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const int e = 4 * i - shift + q;
+            const int px = e / S2, o = e - px * S2 - lo;
+            if (e >= 0 && e < n_row && o >= 0 && o < n)
+              sg[row_at[r] + px * stride + o] = v[q];
+          }
+        }
+      }
+    }
+  } else {
+    for (int e = t; e < n_row; e += blockDim.x) {
+      const int px = e / S2;
+#pragma unroll 4
+      for (int r = 0; r < nrows; ++r) {
+        int lo, n, stride;
+        kept_floats(r, &lo, &n, &stride);
+        const int o = e - px * S2 - lo;
+        if (o < 0 || o >= n) continue;
+        const long long a = (img + (long long)(hy0 + r) * w + hx0) * S2 + e;
+        sg[row_at[r] + px * stride + o] = leaky(__ldg(g + a), __ldg(out + a));
+      }
+    }
+  }
+  cp_async_wait();
+  __syncthreads();
+
+  // 2. the gathers: this thread's vector j of pixel (x, y) over the window
+  // rows dy = rg, rg + nr, ...; coefficients and the neighbours' vectors
+  // all from shared memory
+  const int rg = t & (nr - 1);
+  const int q = t / nr;
+  const int jv = q % cv;
+  const int p = q / cv;
+  const int j = chunk * cv + jv;
+  const int x = x0 + p % tw, y = y0 + p / tw;
+  const bool active = p < tw * th && x < w && y < h && j < vecs;
+  float acc1[VEC], acc2[VEC];
+#pragma unroll
+  for (int u = 0; u < VEC; ++u) acc1[u] = acc2[u] = 0.f;
+  if (active) {
+    const float* sa = sg + row_at[y - hy0] + (x - hx0) * S2;  // g'[q, d]
+    for (int dy = rg; dy < S; dy += nr) {
+      const int yy = y + dy - R;
+      if (yy < 0 || yy >= h) continue;
+      // g'[q + d, -d] of the neighbour in column xx: offset
+      // (2R - dy) * S + 2R - dx, less the window rows its row left out
+      const int kept = band_kept<R>(yy, y0, ye);
+      const int first = yy < y0 ? R + y0 - yy : 0;
+      const int stride = kept == S ? S2 : (kept * S) | 1;
+      const float* sb =
+          sg + row_at[yy - hy0] + (2 * R - dy - first) * S + 2 * R;
+      const int nb = (yy - hy0) * hw * cv - hx0 * cv + jv;
+#pragma unroll
+      for (int dx = 0; dx < S; ++dx) {
+        const int xx = x + dx - R;
+        if (xx < 0 || xx >= w) continue;
+        const float ga = sa[dy * S + dx];
+        const float gb = sb[(xx - hx0) * stride - dx];
+        float v1[VEC], v2[VEC];
+        Vec<T, VEC>::unpack(cs1[nb + xx * cv], v1);
+        Vec<T, VEC>::unpack(cs2[nb + xx * cv], v2);
+#pragma unroll
+        for (int u = 0; u < VEC; ++u) {
+          acc1[u] = fmaf(ga, v2[u], acc1[u]);
+          acc2[u] = fmaf(gb, v1[u], acc2[u]);
+        }
+      }
+    }
+  }
+
+  // 3. the row groups' sums, added across neighbouring lanes, then the
+  // gradients rounded once to T
+  if (nr > 1) {
+    const unsigned mask = live_lanes();
+    for (int o = nr >> 1; o > 0; o >>= 1) {
+#pragma unroll
+      for (int u = 0; u < VEC; ++u) {
+        acc1[u] += __shfl_xor_sync(mask, acc1[u], o);
+        acc2[u] += __shfl_xor_sync(mask, acc2[u], o);
+      }
+    }
+  }
+  if (active && rg == 0) {
+    const long long at = (img + (long long)y * w + x) * C + j * VEC;
+    Vec<T, VEC>::store(dc1 + at, acc1);
+    Vec<T, VEC>::store(dc2 + at, acc2);
+  }
+}
+
 // The forward's grid: segments of `seg` pixels, `nseg` to an image row, and
 // `dys` rows of the window to a block.
 struct ForwardGrid {
   int seg, nseg, dys;
 };
 
+// Lanes a cut's vectors split over: one thread a cut up to kOneThreadCut
+// channels (M4Depth's cuts, V1's levels 1-2); above, a power of two that
+// leaves each lane kLaneVecs to 2 kLaneVecs - 1 vectors (one to one at up
+// to kFewPixels pixels), at most kMaxLanes.
+int forward_lanes(long long pixels, int cc, int vec, int cuts) {
+  if (cc <= kOneThreadCut) return 1;
+  const int per_lane = pixels <= kFewPixels ? 1 : kLaneVecs;
+  int lanes = 1;
+  while (lanes * 2 <= std::min(kMaxLanes, cc / vec / per_lane) &&
+         lanes * 2 * cuts <= kForwardThreads)
+    lanes *= 2;
+  return lanes;
+}
+
 // Every row of the window in one block (so a block stores whole pixel rows)
-// while segments of 8 pixels or more still give a wave of blocks; else one
-// row of the window a block, with segments down to one pair of pixels. The
-// segment starts as wide as kForwardThreads threads allow and halves until
-// the grid makes a wave. False if one pair's cuts need too many threads.
-bool forward_grid(long long b, int h, int w, int cuts, int S,
+// while segments of 8 pixels or more still give a wave of blocks; else, and
+// always for a cut split over lanes, one row of the window a block, with
+// segments down to one pair of pixels. The segment starts as wide as
+// kForwardThreads threads allow and halves until the grid makes a wave.
+// False if one pair's lanes and cuts need too many threads.
+bool forward_grid(long long b, int h, int w, int cuts, int S, int lanes,
                   ForwardGrid* g) {
   const long long rows = b * h;
   const int w_even = (w + 1) & ~1;
   for (const int dys : {S, 1}) {
-    if (cuts * dys > kForwardThreads) continue;
-    const int pairs =
-        std::min(kMaxSegment / 2, kForwardThreads / (cuts * dys));
+    if (lanes > 1 && dys == S) continue;
+    const int per_pair = lanes * cuts * dys;
+    if (per_pair > kForwardThreads) continue;
+    const int pairs = std::min(kMaxSegment / 2, kForwardThreads / per_pair);
     const int min_seg = dys == S ? 8 : 2;
     int seg = std::min(2 * pairs, w_even);
     auto blocks = [&](int s) {
@@ -376,16 +748,21 @@ cudaError_t launch_forward(const void* c1, const void* c2, void* out, int b,
                            int h, int w, int C, int cuts, float slope,
                            cudaStream_t stream) {
   constexpr int S = 2 * R + 1;
+  const int lanes = forward_lanes((long long)b * h * w, C / cuts, VEC, cuts);
   ForwardGrid g;
-  if (!forward_grid(b, h, w, cuts, S, &g)) return cudaErrorInvalidValue;
+  if (!forward_grid(b, h, w, cuts, S, lanes, &g))
+    return cudaErrorInvalidValue;
   const long long blocks = (long long)b * h * g.nseg;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
   const dim3 grid((unsigned)blocks, S / g.dys);
-  const int threads = cuts * (g.seg / 2) * g.dys;
+  const int threads = lanes * cuts * (g.seg / 2) * g.dys;
   const size_t smem = (size_t)g.seg * g.dys * S * cuts * sizeof(float);
-  sncv_forward_kernel<T, VEC, R><<<grid, threads, smem, stream>>>(
+  auto kernel = lanes > 1 ? sncv_forward_kernel<T, VEC, R, true>
+                          : sncv_forward_kernel<T, VEC, R, false>;
+  kernel<<<grid, threads, smem, stream>>>(
       static_cast<const T*>(c1), static_cast<const T*>(c2),
-      static_cast<float*>(out), h, w, C, cuts, g.seg, g.nseg, g.dys, slope);
+      static_cast<float*>(out), h, w, C, cuts, g.seg, g.nseg, g.dys, lanes,
+      slope);
   return cudaGetLastError();
 }
 
@@ -496,6 +873,114 @@ cudaError_t launch_backward(const void* g, const void* out, const void* c1,
   return cudaGetLastError();
 }
 
+// The one-cut backward's grid: tiles of tw x th pixels, ntx x nty of them
+// to an image, each split into nchunks chunks of cv channel vectors, and nr
+// groups of the window's rows to a pixel.
+struct BandGrid {
+  int tw, th, ntx, nty, cv, nchunks, nr;
+  size_t smem;
+};
+
+// The most shared memory g' of a tile tw x th (of an image h x w) can take:
+// its own rows and R halo rows above and below; with `chunk` bytes of c1
+// (and as many of c2) a pixel, their chunks over the halo besides.
+size_t band_smem(int h, int w, int tw, int th, int R, int chunk = 0) {
+  const int S = 2 * R + 1;
+  const int hw = std::min(tw + 2 * R, w);
+  size_t floats = (size_t)th * band_row_floats(hw, S, S);
+  for (int k = 1; k <= R; ++k)
+    floats += 2 * (size_t)band_row_floats(hw, R + 1 - k, S);
+  return floats * sizeof(float) +
+         2 * (size_t)std::min(th + 2 * R, h) * hw * chunk;
+}
+
+// Tiles one image wide up to kBandMaxWidth pixels, else kBandTileWidth
+// wide; bands of at most `rows` rows, cut evenly, fewer while a tile's g'
+// passes `budget`. The window's rows go to nr groups of threads (a power of
+// two, at most 8, a block of kRowGroupThreads at most) while the grid has
+// fewer than kFewThreads; a block takes as many of a pixel's channel
+// vectors (of `vec_bytes` each, a divisor of their number) as kBandThreads
+// and `budget` allow. While the grid has less than a wave of blocks the
+// tile halves its longer side, down to 2x2 pixels, then the blocks take
+// fewer vectors: each chunk of vectors stages the tile's g' again. False if
+// no tile fits.
+bool band_grid_of(long long b, int h, int w, int C, int vec, int vec_bytes,
+                  int R, int rows, size_t budget, BandGrid* g) {
+  const int vecs = C / vec;
+  int tw = w <= kBandMaxWidth ? w : kBandTileWidth;
+  int th = (h + (h + rows - 1) / rows - 1) / ((h + rows - 1) / rows);
+  while (band_smem(h, w, tw, th, R, vec_bytes) > budget && th > 1)
+    th = (th + 1) / 2;
+  // the largest divisor of vecs not above n
+  auto divisor = [vecs](int n) {
+    int d = std::max(1, std::min(vecs, n));
+    while (vecs % d) --d;
+    return d;
+  };
+  for (;;) {
+    const int P = tw * th;
+    if (P > kBandThreads) return false;
+    int nr = 1;
+    while (nr < 8 && b * h * w * vecs * nr < kFewThreads &&
+           2 * nr * P <= kRowGroupThreads)
+      nr *= 2;
+    int cv = divisor(kBandThreads / (P * nr));
+    while (cv > 1 && band_smem(h, w, tw, th, R, cv * vec_bytes) > budget)
+      cv = divisor(cv - 1);
+    const long long tiles =
+        b * ((w + tw - 1) / tw) * (long long)((h + th - 1) / th);
+    if (tiles * (vecs / cv) < kWave && P > 4) {
+      if (tw >= th) tw = (tw + 1) / 2; else th = (th + 1) / 2;
+      continue;
+    }
+    while (cv > 1 && tiles * (vecs / cv) < kWave) cv = divisor(cv - 1);
+    *g = {tw, th, (w + tw - 1) / tw, (h + th - 1) / th, cv, vecs / cv, nr,
+          band_smem(h, w, tw, th, R, cv * vec_bytes)};
+    return g->smem <= kMaxSmem;
+  }
+}
+
+// Large tiles (kBigRows rows, one block an SM) where the image gives
+// kBigTiles of them or more: fewer halo rows read for each row of the
+// image (measured on the H100: levels 1-2 of V1's d6 384x384 model at b=3
+// 11-16% faster, levels 3-4 slower); else tiles of kBandRows rows.
+bool band_grid(long long b, int h, int w, int C, int vec, int vec_bytes,
+               int R, BandGrid* g) {
+  const int tw = w <= kBandMaxWidth ? w : kBandTileWidth;
+  const long long big_tiles = b * ((w + tw - 1) / tw) *
+                              (long long)((h + kBigRows - 1) / kBigRows);
+  if (big_tiles >= kBigTiles &&
+      band_grid_of(b, h, w, C, vec, vec_bytes, R, kBigRows, kBigSmem, g))
+    return true;
+  return band_grid_of(b, h, w, C, vec, vec_bytes, R, kBandRows, kBandSmem,
+                      g);
+}
+
+template <typename T, int VEC, int R>
+cudaError_t launch_backward_band(const void* g, const void* out,
+                                 const void* c1, const void* c2, void* dc1,
+                                 void* dc2, int b, int h, int w, int C,
+                                 float slope, cudaStream_t stream) {
+  BandGrid gr;
+  if (!band_grid(b, h, w, C, VEC, VEC * (int)sizeof(T), R, &gr))
+    return cudaErrorInvalidValue;
+  const int c_at = (int)(band_smem(h, w, gr.tw, gr.th, R) / sizeof(float));
+  const long long blocks = (long long)b * gr.ntx * gr.nty * gr.nchunks;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const cudaError_t err =
+      allow_smem<sncv_backward_band_kernel<T, VEC, R>>(gr.smem);
+  if (err != cudaSuccess) return err;
+  const int threads = gr.nr * gr.cv * gr.tw * gr.th;
+  const int vec4 = aligned16(g) && aligned16(out);
+  sncv_backward_band_kernel<T, VEC, R>
+      <<<(unsigned)blocks, threads, gr.smem, stream>>>(
+      static_cast<const float*>(g), static_cast<const float*>(out),
+      static_cast<const T*>(c1), static_cast<const T*>(c2),
+      static_cast<T*>(dc1), static_cast<T*>(dc2), h, w, C, gr.tw, gr.th,
+      gr.ntx, gr.nty, gr.cv, gr.nchunks, gr.nr, c_at, vec4, slope);
+  return cudaGetLastError();
+}
+
 template <typename T, int VEC, int R>
 cudaError_t launch_backward_same(const void* g, const void* out,
                                  const void* c1, const void* c2, void* dc1,
@@ -505,6 +990,17 @@ cudaError_t launch_backward_same(const void* g, const void* out,
   if (same)
     return launch_backward<T, VEC, R, true>(g, out, c1, c1, dc1, dc1, b, h,
                                             w, C, cuts, slope, stream);
+  // one cut: the band kernel, except on an image one band tile wide where
+  // the tile kernel splits the window's rows (its 2x2 tiles take all of a
+  // pixel's vectors in one block; the band kernel's tiles stage the whole
+  // width's g' again for each chunk of vectors): V1's level 5, 12.0 against
+  // 17.1 us at b=3 on the H100
+  BackwardGrid tile;
+  if (cuts == 1 &&
+      !(w <= kBandMaxWidth &&
+        backward_grid(b, h, w, C, 1, VEC, R, false, &tile) && tile.nr > 1))
+    return launch_backward_band<T, VEC, R>(g, out, c1, c2, dc1, dc2, b, h,
+                                           w, C, slope, stream);
   return launch_backward<T, VEC, R, false>(g, out, c1, c2, dc1, dc2, b, h,
                                            w, C, cuts, slope, stream);
 }

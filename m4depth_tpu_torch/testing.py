@@ -91,6 +91,20 @@ SNCV_BWD_TOL = {torch.float32: (1e-5, 1e-5),
 SNCV_SAME_TOL = {torch.bfloat16: (2.0 ** -7, 2.0 ** -6),
                  torch.float16: (2.0 ** -10, 2.0 ** -9)}
 TIE_PX = 1e-3
+
+# V1's SNCV (radius 4, one cut, c1 != c2) at shapes that reach each branch
+# of its kernels' launch plans beyond the d6 level shapes, as (b, h, w, C):
+# a width that is a multiple of neither the backward's 16-pixel tiles nor
+# the forward's segments, over several bands of rows; a height below the
+# 9-row window; C = 18, a multiple of no 16-byte vector in any dtype (the
+# 4-byte paths); the KITTI finetune's level 1 (256x768 frames); b=8 at
+# levels 3 and 6 (the forward's split channels, the backward's row
+# groups). The one-cut backward kernel takes each of them; the d6 levels
+# also reach the tile kernel it leaves V1's level 5 to.
+# ``tests/test_torch_cuda.py`` and ``chip_smoke.py`` phases 2 and 3 both
+# run them.
+V1_SNCV_EDGE_SHAPES = ((2, 13, 37, 16), (3, 5, 41, 32), (2, 11, 41, 18),
+                       (3, 128, 384, 16), (8, 48, 48, 64), (8, 6, 6, 192))
 DSCV_GRADS = ("dc1", "dc2", "dpara", "dcentre")
 
 # One training step, card against CPU, float32. The loss to rtol 1e-4.

@@ -37,6 +37,7 @@ from m4depth_tpu_torch.testing import (
     MODEL_TOL,
     SNCV_TOL,
     STEP_LOSS_RTOL,
+    V1_SNCV_EDGE_SHAPES,
     assert_dscv_grads_close,
     assert_sncv_grads_close,
     assert_train_step_close,
@@ -115,6 +116,15 @@ V1_LEVEL_IDS = [f"v1-b{b}-{h}x{w}-C{C}" for (b, h, w, C), _ in V1_LEVEL_SHAPES]
 @pytest.mark.parametrize("shape,cuts", V1_LEVEL_SHAPES, ids=V1_LEVEL_IDS)
 def test_sncv_radius4_kernel_matches_plain(cuda, shape, cuts, dtype):
     _check_sncv_forward(cuda, shape, cuts, False, dtype, radius=4)
+
+
+V1_EDGE_IDS = [f"v1-b{b}-{h}x{w}-C{C}" for b, h, w, C in V1_SNCV_EDGE_SHAPES]
+
+
+@pytest.mark.parametrize("dtype", KERNEL_DTYPES)
+@pytest.mark.parametrize("shape", V1_SNCV_EDGE_SHAPES, ids=V1_EDGE_IDS)
+def test_sncv_radius4_edge_kernel_matches_plain(cuda, shape, dtype):
+    _check_sncv_forward(cuda, shape, 1, False, dtype, radius=4)
 
 
 @pytest.mark.parametrize("dtype", KERNEL_DTYPES)
@@ -267,6 +277,43 @@ def test_sncv_backward_kernel_matches_plain(cuda, shape, cuts, same, dtype):
 def test_sncv_radius4_backward_kernel_matches_plain(cuda, shape, cuts,
                                                     dtype):
     _check_sncv_backward(cuda, shape, cuts, False, dtype, radius=4)
+
+
+@pytest.mark.parametrize("dtype", KERNEL_DTYPES)
+@pytest.mark.parametrize("shape", V1_SNCV_EDGE_SHAPES, ids=V1_EDGE_IDS)
+def test_sncv_radius4_edge_backward_kernel_matches_plain(cuda, shape, dtype):
+    _check_sncv_backward(cuda, shape, 1, False, dtype, radius=4)
+
+
+@pytest.mark.parametrize("dtype", KERNEL_DTYPES)
+@pytest.mark.parametrize("offset", [1, 2], ids=["g+4B", "g+8B"])
+def test_sncv_radius4_backward_of_unaligned_grad(cuda, offset, dtype):
+    """g and the forward's output 4 or 8 bytes off 16-byte alignment, and
+    unaligned features: the backward stages g' with 4-byte loads and reads
+    the features one element at a time."""
+    rng = np.random.RandomState(2)
+    shape = (2, 13, 37, 16)
+    n = 81 * int(np.prod(shape[:3]))
+
+    def unaligned(x, dt):
+        flat = torch.zeros(x.numel() + offset, dtype=dt, device=cuda)
+        flat[offset:] = x.flatten().to(cuda, dt)
+        return flat[offset:].view(x.shape)
+
+    c1, c2 = (unaligned(torch.from_numpy(norm_cuts(rng.randn(*shape), 1)),
+                        dtype) for _ in range(2))
+    g = unaligned(torch.from_numpy(rng.randn(n).astype(np.float32)),
+                  torch.float32).view(*shape[:3], 81)
+    out = unaligned(spatial_cost_volume_fused(c1, c2, 4, 1, dtype),
+                    torch.float32).view(*shape[:3], 81)
+    assert g.data_ptr() % 16 and out.data_ptr() % 16 and c1.data_ptr() % 16
+    before = SNCV_BACKWARD_KERNEL.launches
+    got = _sncv_backward(g, c1, c2, out, 4, 1, 0.1)
+    torch.cuda.synchronize()
+    assert SNCV_BACKWARD_KERNEL.launches == before + 1
+    a, b = (t.detach().clone().requires_grad_() for t in (c1, c2))
+    assert_sncv_grads_close(got, sncv_plain_grads(a, b, 4, 1, dtype, g, out),
+                            dtype, False)
 
 
 def _check_sncv_backward(cuda, shape, cuts, same, dtype, radius):

@@ -115,6 +115,40 @@ def test_sncv_plain_matches_pallas_interpret(cuts, same):
                                rtol=1e-4, atol=1e-5)
 
 
+# V1's SNCV: a 9x9 window (radius 4), one cut, c1 != c2, float32, at a size
+# whose sides are multiples of nothing the kernels tile by.
+V1_SNCV_SHAPE = (2, 11, 13, 24)
+
+
+def _v1_sncv_inputs(seed):
+    rng = np.random.RandomState(seed)
+    return (rng.randn(*V1_SNCV_SHAPE).astype(np.float32),
+            rng.randn(*V1_SNCV_SHAPE).astype(np.float32), rng)
+
+
+def test_sncv_radius4_plain_matches_xla():
+    """float32 on both sides, at the radius-3 cases' tolerance."""
+    c1, c2, _ = _v1_sncv_inputs(30)
+    ref = jcv.spatial_cost_volume(jnp.asarray(c1), jnp.asarray(c2), 4,
+                                  num_cuts=1, cv_dtype=jnp.float32)
+    out = spatial_cost_volume(_t(c1), _t(c2), 4, 1, torch.float32)
+    assert out.shape == V1_SNCV_SHAPE[:3] + (81,)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref),
+                               rtol=1e-5, atol=1e-6)
+
+
+def test_sncv_radius4_plain_matches_pallas_interpret():
+    """The Pallas kernel in interpret mode at radius 4, at the tolerance of
+    the radius-3 case."""
+    c1, c2, _ = _v1_sncv_inputs(31)
+    ref = spatial_cost_volume_pallas(jnp.asarray(c1), jnp.asarray(c2), 4,
+                                     num_cuts=1, cv_dtype=jnp.float32,
+                                     interpret=True)
+    out = spatial_cost_volume(_t(c1), _t(c2), 4, 1, torch.float32)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref),
+                               rtol=1e-4, atol=1e-5)
+
+
 # -- DSCV ---------------------------------------------------------------
 
 
@@ -183,6 +217,28 @@ def test_sncv_gradients_match_jax(cuts, same):
     got = [t1.grad] if same else [t1.grad, t2.grad]
     for a, r in zip(got, ref):
         np.testing.assert_allclose(a.numpy(), r, rtol=1e-5, atol=1e-6)
+
+
+def test_sncv_radius4_gradients_match_jax():
+    """Autograd of the plain SNCV at V1's radius 4 (one cut, c1 != c2)
+    against jax.grad of the XLA SNCV, float32, at the radius-3 cases'
+    tolerance."""
+    c1, c2, rng = _v1_sncv_inputs(32)
+    g = rng.randn(*V1_SNCV_SHAPE[:3], 81).astype(np.float32)
+
+    def loss(a, b):
+        cv = jcv.spatial_cost_volume(a, b, 4, num_cuts=1,
+                                     cv_dtype=jnp.float32)
+        return (cv * jnp.asarray(g)).sum()
+
+    jd1, jd2 = jax.jit(jax.grad(loss, argnums=(0, 1)))(jnp.asarray(c1),
+                                                        jnp.asarray(c2))
+    t1, t2 = _t(c1).requires_grad_(), _t(c2).requires_grad_()
+    out = spatial_cost_volume(t1, t2, 4, 1, torch.float32)
+    (out * _t(g)).sum().backward()
+    for a, r in ((t1.grad, jd1), (t2.grad, jd2)):
+        np.testing.assert_allclose(a.numpy(), np.asarray(r),
+                                   rtol=1e-5, atol=1e-6)
 
 
 def _dscv_grad_inputs(cuts):
