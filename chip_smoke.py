@@ -63,7 +63,9 @@ exits non-zero and prints no result line:
    T=8. It prints, each beside the card's name and power limit, the train
    mode's ms/step beside phase 8's (no loading), the loader's batches/s,
    the eval mode's ms/frame and the peak device memory above the phase's
-   baseline;
+   baseline. Its modes run the compiled programs (``fit``'s
+   ``compile_train_step``, the evaluator's compiled eval steps, predict's
+   ``compile_step``), whose replays count their kernels' launches;
 12. the V1 model: d6 at 128x128 on the card against the CPU (as phase 4),
    streaming ``M4DepthV1.step`` at 384x384 b=1 bf16 (as phase 6: 6 SNCV
    forwards a frame, no DSCV) and its training step at b=3 T=4 (as phase
@@ -74,7 +76,8 @@ exits non-zero and prints no result line:
    then "dscv"): ms/step and peak memory;
 13. the geometry gates: ``m4depth_tpu_torch.tools.synthetic_validation
    --mode overfit`` with M4Depth (1000 steps) and with V1 (1200 steps),
-   each of which must print ``GEOMETRY VALIDATION PASSED``;
+   each of which must print ``GEOMETRY VALIDATION PASSED`` (the tool
+   trains and evaluates through the compiled steps);
 14. parallel serving (``m4depth_tpu_torch.parallel``), d6 384x384 bf16:
    ``sharded_stream`` on the card at 1, 4 and 8 streams (before N=4
    and N=8 the two forward kernels against their plain versions at the six
@@ -82,8 +85,9 @@ exits non-zero and prints no result line:
    frames/s, peak memory, the live allocations and their requested bytes
    equal after frame 10 and after the last, 6 launches of each forward
    kernel a step, each stream's first 5 frames against it alone at b=1,
-   no collective in a profile);
-   ``FreshFrameStream`` against the serial loop, bitwise, one frame late;
+   no collective in a profile; each replica runs ``compile_step``);
+   ``FreshFrameStream`` (``compile_step``) against the eager serial
+   loop, bitwise, one frame late;
    the port's ``tools/fresh_frame_bench.py``, its five loops at 200 frames;
 15. data-parallel training: ``distributed_init`` of a world of one over
    NCCL in this process, the training path of phase 8 through
@@ -106,8 +110,25 @@ exits non-zero and prints no result line:
 19. the port's tools at reduced counts: ``memory_footprint``, ``fps --n 50
    --profile``, ``train_prof --steps 3``, ``io_bench`` (record store), and
    ``rehearsal`` for 2 epochs of 10 steps, then relaunched to 30 steps
-   (resume and extension);
-20. one JSON line listing the kernels (the four, then their float16
+   (resume and extension); each times the compiled step, and ``fps
+   --profile`` and ``train_prof`` profile the eager one (a replay has no
+   Python stack to attribute kernels by);
+20. the compiled programs (``utils.graphs``, the counterparts of the JAX
+   package's jitted, state-donating steps; CUDA graphs): ``compile_step``
+   of M4Depth and V1 at d6 384x384 b=1 bf16 over 50 distinct frames with
+   a reset, held against the eager ``model.step`` chain (maximum error,
+   bitwise or not) and timed against it in turns (5 blocks of 50 frames),
+   each with a profile (busy share, host launches; each kernel's runs on
+   the device in one replayed frame's profile), peak memory under the
+   reference's
+   500 MB; ``compile_train_step`` of both families at b=3 T=4 bf16
+   against ``make_train_step`` (launches, peak memory, in turns, a
+   profile of each), three float32 compiled steps held to three eager
+   ones by ``testing.assert_step_close`` (each eager step from the
+   compiled run's weights and Adam state), three compiled steps at T=8
+   with remat "all"; the CLI's eval mode (compiled) against the eager
+   evaluator to ``testing.EVAL_METRIC_TOL``;
+21. one JSON line listing the kernels (the four, then their float16
    instantiations), then the result line ``{"ok": true, "device":
    {...}}``.
 
@@ -157,10 +178,12 @@ from m4depth_tpu_torch.ops.sncv import KERNEL_DTYPES, _sncv_backward
 from m4depth_tpu_torch.testing import (
     DSCV_CV_TOL,
     DSCV_PARA_TOL,
+    EVAL_METRIC_TOL,
     MODEL_TOL,
     SNCV_TOL,
     STEP_LOSS_RTOL,
     V1_SNCV_EDGE_SHAPES,
+    assert_bf16_depth_close,
     assert_dscv_grads_close,
     assert_sncv_grads_close,
     assert_step_close,
@@ -2114,6 +2137,8 @@ def phase_cli_launcher(dev, cli_ms: float) -> float:
               f"{proc.returncode}")
         saved = sorted(os.listdir(os.path.join(ckpt, "train")))
         check(saved == ["0.pt"], f"checkpoints under the launcher: {saved}")
+        check("runs the eager DDP step" in proc.stdout,
+              "fit under the launcher did not take its DDP step")
     ms = parsed(r"step ms median ([0-9.]+)", proc.stdout,
                 "step time under the launcher")
     log(f"  [{card}] train mode under torch.distributed.run at world 1 "
@@ -2341,7 +2366,8 @@ def phase_tools(dev) -> dict:
         f"memory_allocated() {r['allocated']} bytes above the start, peak "
         f"{r['peak_above_start']} bytes above it "
         f"({r['peak_above_start'] / 2 ** 20:.1f} MiB; the reference claims "
-        f"~{memory_footprint.REFERENCE_CLAIM_MB} MB)")
+        f"~{memory_footprint.REFERENCE_CLAIM_MB} MB); the CUDA graph's pool "
+        f"{r['graph_pool']} bytes ({r['graph_pool'] / 2 ** 20:.1f} MiB)")
 
     r = tool("fps", lambda: fps.run(fps.parse_args(
         ["--n", str(TOOL_FPS_FRAMES), "--profile"])))
@@ -2416,6 +2442,436 @@ def phase_tools(dev) -> dict:
             f"{REHEARSAL_STEPS[1]} steps at {ms[1]:.3f} ms/step; held-out "
             f"AbsRel {heldout[0]['AbsRel']}, then {heldout[1]['AbsRel']}")
     out["launches"] = launches
+    return out
+
+
+# -- phase 20 ---------------------------------------------------------------
+
+GRAPH_FRAMES = 50        # the compiled serving chain held against eager
+GRAPH_RESET = 25         # a frame that restarts the trajectory (and 0)
+GRAPH_PROFILED_STEPS = 3
+GRAPH_CHECK_STEPS = 3    # float32 compiled steps held to eager ones
+GRAPH_TRAIN_BLOCKS = 3
+# the hand-written kernels as the profiler names them on the device
+DEVICE_KERNELS = {"sncv_forward": ("sncv_forward_kernel",),
+                  "sncv_backward": ("sncv_backward_kernel",
+                                    "sncv_backward_band_kernel"),
+                  "dscv_forward": ("dscv_forward_kernel",),
+                  "dscv_backward": ("dscv_backward_kernel",)}
+HOST_LAUNCHES = ("cudaLaunchKernel", "cuLaunchKernel", "cudaGraphLaunch",
+                 "cudaMemcpyAsync", "cudaMemsetAsync")
+
+
+def profiled(run, n: int):
+    """``n`` calls of ``run`` under ``torch.profiler`` (after one call
+    outside it), ending in a synchronise: the profile's events and the
+    window's wall time in us."""
+    from torch.profiler import ProfilerActivity, profile
+
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            run()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    return prof.events(), wall_us
+
+
+def device_kernels(events) -> dict:
+    """Each hand-written kernel's runs on the device in ``events``."""
+    from torch.autograd import DeviceType
+
+    return {k: sum(evt.device_type == DeviceType.CUDA
+                   and any(name in evt.name for name in names)
+                   for evt in events)
+            for k, names in DEVICE_KERNELS.items()}
+
+
+def graph_profile(run, n: int) -> dict:
+    """A ``torch.profiler`` window over ``n`` calls of ``run``: wall and
+    device-busy time a call, the busy share, the host's launches a call
+    (the runtime's ``cudaLaunchKernel``, ``cudaGraphLaunch``, copy and
+    memset events) and each hand-written kernel's runs on the device a
+    call (graph kernels included)."""
+    from torch.autograd import DeviceType
+
+    events, wall_us = profiled(run, n)
+    busy, host = 0.0, {}
+    for evt in events:
+        if evt.device_type == DeviceType.CUDA:
+            if "#" in evt.name and "(" not in evt.name:
+                continue  # a user annotation, as in phase_profile
+            busy += evt.time_range.elapsed_us()
+        else:
+            for name in HOST_LAUNCHES:
+                if evt.name.startswith(name):
+                    host[name] = host.get(name, 0) + 1
+    return dict(wall_us=wall_us / n, busy_us=busy / n,
+                busy_share=busy / wall_us,
+                host_launches=sum(host.values()) / n,
+                host={k: v / n for k, v in host.items()},
+                kernels={k: v / n for k, v in device_kernels(events).items()})
+
+
+def replay_kernels(run, want: dict, what: str) -> dict:
+    """The hand-written kernels' runs on the device in a profile of one
+    replay of ``run``'s graph, which must be ``want``. Over a window of
+    several replays the profiler missed a few graph kernels once (58 of
+    60 in one call), so up to three one-replay windows are read, and one
+    must count ``want`` exactly."""
+    seen = []
+    for _ in range(3):
+        seen.append(device_kernels(profiled(run, 1)[0]))
+        if seen[-1] == want:
+            break
+    check(seen[-1] == want, f"{what}: the kernels of one replay in its "
+          f"profile {seen}, expected {want}")
+    return seen[-1]
+
+
+def in_turns(runs: dict, blocks: int, per_block: int) -> dict:
+    """Each of ``runs`` (name -> one call) timed over ``blocks`` blocks of
+    ``per_block`` calls, the names taking turns and each block's first
+    name alternating; ms a call of each block, by name."""
+    names = list(runs)
+    ms = {k: [] for k in names}
+    for i in range(blocks):
+        for k in (names if i % 2 == 0 else names[::-1]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(per_block):
+                runs[k]()
+            torch.cuda.synchronize()
+            ms[k].append((time.perf_counter() - t0) * 1e3 / per_block)
+    return ms
+
+
+def report_turns(ms: dict, unit: str) -> str:
+    return "; ".join(
+        f"{k} {statistics.median(v):.4f} ms/{unit} (blocks "
+        f"{', '.join(f'{x:.4f}' for x in v)})" for k, v in ms.items())
+
+
+def graphed_serving(dev, family, per_frame: dict, card: str) -> dict:
+    """``compile_step`` of the d6 ``family`` at 384x384 b=1 bf16: a chain
+    of GRAPH_FRAMES distinct frames (resets at 0 and GRAPH_RESET; the
+    counts zeroed before and read after) held against the eager
+    ``model.step`` chain; then the compiled and the eager step in turns,
+    and a profile of each."""
+    from m4depth_tpu_torch.parallel import compile_step
+
+    name = family.__name__
+    cfg = ModelConfig(compute_dtype="bfloat16")
+    model = family(cfg, device=dev, seed=0)
+    g = torch.Generator().manual_seed(20)
+    rgbs = torch.rand(GRAPH_FRAMES, 1, SIZE, SIZE, 3, generator=g).to(dev)
+    rot = torch.tensor([CHECK_ROT], device=dev)
+    trans = torch.tensor([CHECK_TRANS], device=dev)
+    f = torch.full((1, 2), FOCAL, device=dev)
+    cam = Camera(f, f.clone())
+    resets = [torch.tensor([t in (0, GRAPH_RESET)], device=dev)
+              for t in range(GRAPH_FRAMES)]
+    step = compile_step(model)
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launch_counts()
+    state = init_state(cfg, 1, SIZE, SIZE, device=dev)
+    depths = []
+    for t in range(GRAPH_FRAMES):
+        state, depth = step(state, rgbs[t], rot, trans, cam, resets[t])
+        depths.append(depth)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated() - base
+    pool = step.pool_bytes()
+    check(step.graphs == 1, f"{name}: one graph for the stream, a reset "
+          f"included ({step.graphs})")
+    for k, n in launches.items():
+        check(n == per_frame[k] * GRAPH_FRAMES, f"{name} compiled: {k} {n} "
+              f"launches in {GRAPH_FRAMES} frames")
+    eager = init_state(cfg, 1, SIZE, SIZE, device=dev)
+    err, equal, rels = 0.0, True, (0.0, 0.0)
+    with torch.no_grad():
+        for t in range(GRAPH_FRAMES):
+            eager, want = model.step(eager, rgbs[t], rot, trans, cam,
+                                     resets[t])
+            err = max(err, max_abs_err(depths[t], want))
+            equal = equal and torch.equal(depths[t], want)
+            med, p99 = assert_bf16_depth_close(
+                depths[t], want, f"{name} compiled frame {t}")
+            rels = (max(rels[0], med), max(rels[1], p99))
+    log(f"  {name}: {GRAPH_FRAMES} frames compiled (resets at 0 and "
+        f"{GRAPH_RESET}) against the eager chain: max |error| {err:.3e}, "
+        f"bitwise equal: {equal}; relative error median <= {rels[0]:.3e}, "
+        f"99th percentile <= {rels[1]:.3e}; launches " + ", ".join(
+            f"{k} {n // GRAPH_FRAMES}/frame" for k, n in launches.items())
+        + f"; {step.graphs} graph")
+    log(f"  [{card}] {name} compiled serving: peak {peak} bytes "
+        f"({peak / 2 ** 20:.1f} MiB) above the {base} allocated before it "
+        f"(the eager warm-up and the capture); the graph's private pool "
+        f"holds {pool} bytes ({pool / 2 ** 20:.1f} MiB)")
+    check(peak < 500e6, f"{name}: the compiled serving peak {peak} bytes is "
+          "under the reference's ~500 MB")
+
+    x = main_path_inputs(dev)
+    go = torch.zeros(1, dtype=torch.bool, device=dev)
+    box = {"graph": state, "eager": eager}
+
+    def frame_of(key, fn):
+        def run():
+            box[key], _ = fn(box[key], x["rgb"], x["rot"], x["trans"],
+                             x["camera"], go)
+        return run
+
+    runs = {"eager": frame_of("eager", torch.no_grad()(model.step)),
+            "compiled": frame_of("graph", step)}
+    ms = in_turns(runs, TIMED_BLOCKS, FRAMES_PER_BLOCK)
+    log(f"  [{card}] {name} serving d6 {SIZE}x{SIZE} b=1 bf16, in turns: "
+        + report_turns(ms, "frame"))
+    prof = {k: graph_profile(run, PROFILED_FRAMES) for k, run in runs.items()}
+    for k, r in prof.items():
+        log(f"  [{card}] {name} {k} profile: wall {r['wall_us']:.1f} "
+            f"us/frame, device busy {r['busy_us']:.1f} us/frame "
+            f"({100 * r['busy_share']:.1f}% busy), host launches "
+            f"{r['host_launches']:.1f}/frame ({r['host']}), kernels on the "
+            f"device {r['kernels']}/frame")
+    check(prof["compiled"]["host"].get("cudaGraphLaunch") == 1,
+          f"{name}: one graph launch a frame")
+    replay = replay_kernels(runs["compiled"], per_frame, f"{name} serving")
+    log(f"  {name}: one replayed frame's profile holds {replay}")
+    return dict(launches=launches, ms=ms, profile=prof, replay=replay,
+                peak=peak, pool=pool, max_abs_err=err, bitwise=equal)
+
+
+def graphed_training(dev, family, per_step: dict, card: str) -> dict:
+    """``compile_train_step`` of the d6 ``family`` at 384x384 b=3 T=4
+    bf16 against ``make_train_step`` from the same weights and batch:
+    each one's peak memory and launches (zeroed before, read after), then
+    the two in turns and a profile of each."""
+    from m4depth_tpu_torch.train import compile_train_step
+
+    name = family.__name__
+    cfg = ModelConfig(compute_dtype="bfloat16", cv_dtype="bfloat16")
+    batch = train_batch(TRAIN_B, TRAIN_T, SIZE, 0, ROT, TRANS, dev)
+    steps, out = {}, {}
+    for key, make in (("eager", make_train_step),
+                      ("compiled", compile_train_step)):
+        model = family(cfg, device=dev, seed=0)
+        steps[key] = make(model, make_optimizer(model, TrainConfig(
+            learning_rate=LEARNING_RATE)))
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        zero_launch_counts()
+        losses = [float(steps[key](batch)["loss"]) for _ in range(3)]
+        torch.cuda.synchronize()
+        out[key] = dict(launches=launch_counts(), losses=losses,
+                        peak=torch.cuda.max_memory_allocated() - base)
+        for k, n in out[key]["launches"].items():
+            check(n == 3 * per_step[k], f"{name} {key} training: {k} {n} "
+                  "launches in 3 steps")
+        check(all(np.isfinite(losses)), f"{name} {key}: finite losses")
+    out["compiled"]["pool"] = steps["compiled"].compiled.pool_bytes()
+    check(out["eager"]["losses"][0] == out["compiled"]["losses"][0],
+          f"{name}: the first step's loss equal, eager and compiled")
+    check(steps["compiled"].compiled.graphs == 1, f"{name}: one graph")
+    log(f"  [{card}] {name} training d6 {SIZE}x{SIZE} b={TRAIN_B} "
+        f"T={TRAIN_T} bf16: losses eager {out['eager']['losses']}, compiled "
+        f"{out['compiled']['losses']}; peak above the start eager "
+        f"{out['eager']['peak']} bytes, compiled {out['compiled']['peak']} "
+        f"bytes; the graph's private pool {out['compiled']['pool']} bytes")
+    runs = {k: (lambda s=s: s(batch)) for k, s in steps.items()}
+    ms = in_turns(runs, GRAPH_TRAIN_BLOCKS, STEPS_PER_BLOCK)
+    log(f"  [{card}] {name} training in turns: " + report_turns(ms, "step"))
+    prof = {k: graph_profile(run, GRAPH_PROFILED_STEPS)
+            for k, run in runs.items()}
+    for k, r in prof.items():
+        log(f"  [{card}] {name} {k} training profile: wall "
+            f"{r['wall_us']:.1f} us/step, device busy {r['busy_us']:.1f} "
+            f"us/step ({100 * r['busy_share']:.1f}% busy), host launches "
+            f"{r['host_launches']:.1f}/step ({r['host']}), kernels on the "
+            f"device {r['kernels']}/step")
+    replay = replay_kernels(runs["compiled"], per_step, f"{name} training")
+    log(f"  {name}: one replayed step's profile holds {replay}")
+    return dict(out, ms=ms, profile=prof, replay=replay)
+
+
+def graph_summary(graphs: dict) -> dict:
+    """Phase 20's numbers by path and mode: ms a call (median and each
+    block), the profile's busy share and device-busy us a call, host
+    launches a call, peak bytes above the start (serving: the compiled
+    path's alone; phase 6 has the eager one)."""
+    out = {"remat": graphs["remat"],
+           "cli_eval_ms_frame": graphs["cli_eval"]["ms_frame"]}
+    for path, r in graphs.items():
+        if "profile" not in r:
+            continue
+        out[path] = {}
+        for mode in ("eager", "compiled"):
+            prof = r["profile"][mode]
+            if mode in r:
+                peak = r[mode]["peak"]
+            else:
+                peak = r["peak"] if mode == "compiled" else None
+            out[path][mode] = dict(
+                ms_median=statistics.median(r["ms"][mode]),
+                ms_blocks=r["ms"][mode], busy_share=prof["busy_share"],
+                busy_us=prof["busy_us"], host_launches=prof["host_launches"],
+                peak=peak)
+    return out
+
+
+def phase_graphs(dev) -> dict:
+    """The compiled programs (``utils.graphs``), the counterparts of the
+    JAX package's jitted, state-donating steps: serving of both families
+    held against the eager chain and timed against it in turns; training
+    likewise, a float32 check of three compiled steps against three eager
+    ones (each eager step from the compiled run's state), and steps at
+    T=REMAT_T with remat "all"; the CLI's eval mode (compiled) against the
+    eager evaluator."""
+    from m4depth_tpu_torch.cli.main import (
+        build_dataset,
+        build_model,
+        restore_params_for_eval,
+    )
+    from m4depth_tpu_torch.cli.options import (
+        build_parser,
+        model_config_from_args,
+    )
+    from m4depth_tpu_torch.metrics import METRIC_NAMES, MetricAccumulator
+    from m4depth_tpu_torch.train import (
+        TrainState,
+        compile_train_step,
+        make_streaming_eval_step,
+    )
+    from m4depth_tpu_torch.train.loop import to_device
+
+    card = gpu_name_and_power_limit()
+    out = {}
+    log("  serving, compiled against eager")
+    out["serve"] = graphed_serving(dev, M4Depth, {
+        k: 6 if k in FORWARD else 0 for k in KERNELS}, card)
+    out["v1_serve"] = graphed_serving(dev, M4DepthV1, {
+        k: 6 if k == "sncv_forward" else 0 for k in KERNELS}, card)
+    torch.cuda.empty_cache()
+
+    log("  training, compiled against eager")
+    out["train"] = graphed_training(dev, M4Depth, dict.fromkeys(
+        KERNELS, (TRAIN_T - 1) * 6), card)
+    out["v1_train"] = graphed_training(dev, M4DepthV1, v1_launches(TRAIN_T),
+                                       card)
+    torch.cuda.empty_cache()
+
+    cfg32 = ModelConfig(compute_dtype="float32", cv_dtype="float32")
+    batch = train_batch(TRAIN_B, TRAIN_T, SIZE, 3, CHECK_ROT, CHECK_TRANS,
+                        dev)
+    models = {k: M4Depth(cfg32, device=dev, seed=3)
+              for k in ("compiled", "eager")}
+    opts = {k: make_optimizer(m, TrainConfig(learning_rate=LEARNING_RATE))
+            for k, m in models.items()}
+    steps = {"compiled": compile_train_step(models["compiled"],
+                                            opts["compiled"]),
+             "eager": make_train_step(models["eager"], opts["eager"])}
+    for i in range(GRAPH_CHECK_STEPS):
+        if i:
+            # each eager step starts where the compiled run stands (weights,
+            # Adam state, count), so that every pair is one step from one
+            # state, as the rule holds it
+            TrainState(models["eager"], opts["eager"]).load_state_dict(
+                TrainState(models["compiled"], opts["compiled"]).state_dict())
+        res = {}
+        for k, step in steps.items():
+            scalars = step(batch)
+            res[k] = dict(
+                scalars={n: v.item() for n, v in scalars.items()},
+                grads={n: p.grad.cpu()
+                       for n, p in models[k].named_parameters()},
+                params={n: p.detach().cpu()
+                        for n, p in models[k].named_parameters()})
+        check_step_close(res["compiled"], res["eager"],
+                         f"float32 step {i + 1} of {GRAPH_CHECK_STEPS}, d6 "
+                         f"{SIZE}x{SIZE} b={TRAIN_B} T={TRAIN_T}, compiled "
+                         "against eager")
+    del models, opts, steps, batch
+    torch.cuda.empty_cache()
+
+    log(f"  two compiled steps at T={REMAT_T}, b={TRAIN_B}, remat \"all\"")
+    cfg = ModelConfig(compute_dtype="bfloat16", cv_dtype="bfloat16",
+                      remat=True, remat_policy="all")
+    model = M4Depth(cfg, device=dev, seed=0)
+    step = compile_train_step(model, make_optimizer(model, TrainConfig(
+        learning_rate=LEARNING_RATE)))
+    batch = train_batch(TRAIN_B, REMAT_T, SIZE, 0, ROT, TRANS, dev)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launch_counts()
+    losses = [float(step(batch)["loss"]) for _ in range(2)]
+    t0 = time.perf_counter()
+    losses.append(float(step(batch)["loss"]))
+    remat_ms = (time.perf_counter() - t0) * 1e3
+    launches = launch_counts()
+    fwd2 = (REMAT_T - 1) * 6
+    for k, n in launches.items():
+        want = 3 * fwd2 * (2 if k in FORWARD else 1)
+        check(n == want, f"remat all, compiled: {k} {n} launches in 3 "
+              f"steps, expected {want}")
+    check(all(np.isfinite(losses)), f"remat all, compiled: losses {losses}")
+    out["remat"] = dict(peak=torch.cuda.max_memory_allocated() - base,
+                        ms=remat_ms)
+    log(f"  [{card}] T={REMAT_T} remat \"all\" compiled: losses {losses}; "
+        f"the replayed step {remat_ms:.1f} ms; peak {out['remat']['peak']} "
+        f"bytes ({out['remat']['peak'] / 2 ** 30:.2f} GiB) above the start")
+    del model, step, batch
+    torch.cuda.empty_cache()
+
+    log("  the CLI's eval mode, compiled, against the eager evaluator")
+    with tempfile.TemporaryDirectory() as root:
+        location = write_synthetic_store(root)
+        store = os.path.join(root, "store")
+        ckpt = os.path.join(root, "ckpt")
+        argv = ["--mode=eval", f"--ckpt_dir={ckpt}", "--dataset=midair",
+                f"--db_path_config={location}", f"--record_store={store}",
+                "--arch_depth=6", "--out_size", str(SIZE), str(SIZE),
+                "--num_workers=8"]
+        zero_launch_counts()
+        text = run_cli(argv)
+        launches = launch_counts()
+        n_frames = STORE_TRAJ * STORE_FRAMES
+        for k, n in launches.items():
+            want = 6 * n_frames if k in FORWARD else 0
+            check(n == want, f"CLI eval, compiled: {k} {n} launches")
+        ms_frame = parsed(r"evaluated \d+ frames in [0-9.]+ s \(([0-9.]+) "
+                          r"ms/frame", text, "eval time")
+        perfs = np.loadtxt(os.path.join(ckpt, "perfs-midair.txt"))
+        cmd = build_parser(argparse.ArgumentParser()).parse_args(argv)
+        model = build_model(cmd, model_config_from_args(cmd), dev)
+        restore_params_for_eval(cmd, model, "best")
+        eval_step = make_streaming_eval_step(model)
+        acc, state = MetricAccumulator.zeros(dev), None
+        with torch.no_grad():
+            for frame in build_dataset(cmd, "eval", {}, 1).frames():
+                x = to_device(frame, dev)
+                if state is None:
+                    state = init_state(model.cfg, 1, SIZE, SIZE, device=dev)
+                state, acc = eval_step(state, x, acc)
+        want = acc.result()
+        for i, k in enumerate(METRIC_NAMES):
+            check(abs(perfs[i] - float(want[k]))
+                  <= EVAL_METRIC_TOL["atol"]
+                  + EVAL_METRIC_TOL["rtol"] * abs(float(want[k])),
+                  f"CLI eval {k}: {perfs[i]} compiled against "
+                  f"{float(want[k])} eager")
+        log(f"  [{card}] CLI eval mode compiled: {ms_frame:.3f} ms/frame "
+            f"with loading over {n_frames} frames; perfs-midair.txt "
+            f"{perfs.tolist()} equals the eager evaluator's within "
+            f"{EVAL_METRIC_TOL}")
+        out["cli_eval"] = dict(ms_frame=ms_frame, launches=launches)
     return out
 
 
@@ -2562,6 +3018,10 @@ def main() -> int:
     log("== phase 19: the port's tools (memory_footprint, fps, train_prof, "
         "io_bench, rehearsal)")
     tools = timed(19, phase_tools, dev)
+    log("== phase 20: the compiled programs (CUDA graphs): serving and "
+        "training of both families against the eager steps, in turns; a "
+        f"float32 check; T={REMAT_T} with remat; the CLI's eval mode")
+    graphs = timed(20, phase_graphs, dev)
 
     kernels = []
     for key, info in KERNEL_INFO.items():
@@ -2626,6 +3086,20 @@ def main() -> int:
             # phase 19: each tool's run
             tool_launches={name: n[key]
                            for name, n in tools["launches"].items()},
+            # phase 20: the compiled (CUDA-graph) paths: launches a frame
+            # and a step counted through the replays, and the runs on the
+            # device a replayed frame or step that the profiler saw
+            graph_serving_launches_per_frame=(
+                graphs["serve"]["launches"][key] // GRAPH_FRAMES),
+            graph_v1_serving_launches_per_frame=(
+                graphs["v1_serve"]["launches"][key] // GRAPH_FRAMES),
+            graph_launches_per_step=graphs["train"]["compiled"]["launches"][
+                key] // 3,
+            graph_v1_launches_per_step=graphs["v1_train"]["compiled"][
+                "launches"][key] // 3,
+            graph_profiled_per_frame=graphs["serve"]["replay"][key],
+            graph_profiled_per_step=graphs["train"]["replay"][key],
+            graph_cli_eval_launches=graphs["cli_eval"]["launches"][key],
             passed=True))
         check(kernels[-1]["launches_per_step"] == train["per_step"][key],
               f"{key} launches per step")
@@ -2669,6 +3143,8 @@ def main() -> int:
     log(json.dumps({"v1_profile": {"serving_per_frame": v1_serve_prof,
                                    "training_per_step": v1_train_prof,
                                    "card": gpu_name_and_power_limit()}}))
+    log(json.dumps({"graphs": graph_summary(graphs),
+                    "card": gpu_name_and_power_limit()}))
     log(f"smoke time {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

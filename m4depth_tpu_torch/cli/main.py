@@ -284,15 +284,20 @@ def restore_params_for_eval(cmd, model, weights_subdir: str):
 
 
 def predict_stream(model, dataset, trace=None):
-    """Streaming inference over ``dataset.frames()``: yields each host
-    frame with the model's depth for it, [1, h, w, 1] on the device."""
+    """Streaming inference over ``dataset.frames()`` through the model's
+    compiled step (``parallel.serving.compile_step``: one CUDA graph on
+    the card, as the JAX CLI jits its step): yields each host frame with
+    the model's depth for it, [1, h, w, 1] on the device, a tensor of its
+    own."""
     import torch
 
     from m4depth_tpu_torch.geometry import Camera
     from m4depth_tpu_torch.models import init_state
+    from m4depth_tpu_torch.parallel.serving import compile_step
     from m4depth_tpu_torch.train.loop import to_device
 
     device = next(model.parameters()).device
+    step = compile_step(model)
     model_state = None
     try:
         for i, frame in enumerate(dataset.frames()):
@@ -303,7 +308,7 @@ def predict_stream(model, dataset, trace=None):
                 b, h, w = x["rgb"].shape[:3]
                 model_state = init_state(model.cfg, b, h, w, device)
             with torch.no_grad():
-                model_state, depth = model.step(
+                model_state, depth = step(
                     model_state, x["rgb"], x["rot"], x["trans"],
                     Camera(x["camera_f"], x["camera_c"]), x["new_traj"])
             yield frame, depth

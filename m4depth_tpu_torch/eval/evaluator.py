@@ -8,6 +8,11 @@
 The metrics are the 7-metric suite with the clip-to-[0, 80] protocol,
 accumulated on the device; results go to ``perfs-<dataset>.txt``. The
 model carries its weights, so these functions take no parameter tree.
+
+Each protocol runs its compiled step (``compile_streaming_eval_step``,
+``compile_windowed_eval_step``), as the JAX evaluator runs its jitted one:
+on the card one CUDA graph of the model's step and the metric update,
+replayed every frame or window.
 """
 
 from __future__ import annotations
@@ -23,8 +28,8 @@ from m4depth_tpu_torch.metrics import METRIC_NAMES, MetricAccumulator
 from m4depth_tpu_torch.models import M4Depth, init_state
 from m4depth_tpu_torch.train.loop import to_device
 from m4depth_tpu_torch.train.step import (
-    make_streaming_eval_step,
-    make_windowed_eval_step,
+    compile_streaming_eval_step,
+    compile_windowed_eval_step,
 )
 
 
@@ -48,7 +53,7 @@ def evaluate_streaming(model: M4Depth, dataset, progress_every: int = 0,
     ``max_steps`` > 0 bounds the number of frames scored (a validation
     subset; 0 = the full set)."""
     device = next(model.parameters()).device
-    step = make_streaming_eval_step(model)
+    step = compile_streaming_eval_step(model)
     acc = MetricAccumulator.zeros(device)
     model_state = None
     n = 0
@@ -73,7 +78,7 @@ def evaluate_windowed(model: M4Depth, dataset, progress_every: int = 0,
                       trace=None, max_steps: int = 0) -> Dict[str, float]:
     """Fixed-window evaluation scoring the last frame of each window."""
     device = next(model.parameters()).device
-    step = make_windowed_eval_step(model)
+    step = compile_windowed_eval_step(model)
     acc = MetricAccumulator.zeros(device)
     n = 0
     t0 = time.perf_counter()

@@ -69,7 +69,10 @@ class MetricAccumulator(NamedTuple):
                weight: Union[torch.Tensor, float] = 1.0
                ) -> "MetricAccumulator":
         vec = torch.stack([metrics[name].float() for name in METRIC_NAMES])
-        w = torch.as_tensor(weight, dtype=torch.float32, device=vec.device)
+        # a plain weight is filled on the device: no host-to-device copy,
+        # which a CUDA graph's capture could not hold
+        w = (weight.to(torch.float32) if isinstance(weight, torch.Tensor)
+             else torch.full((), float(weight), device=vec.device))
         # a skipped frame must add nothing even if its metrics are not
         # finite: NaN * 0 is NaN and would poison the totals for good
         vec = torch.where(w > 0, vec * w, torch.zeros_like(vec))

@@ -183,9 +183,11 @@ class DecoderLevel(nn.Module):
                      camera, cfg.search_range, cuts, cfg.torch_cv_dtype)
         if cfg.remat and cfg.remat_policy == "dscv" and torch.is_grad_enabled():
             # the counterpart of the JAX package's jax.checkpoint of the DSCV
-            # call: the backward runs the DSCV forward again
+            # call: the backward runs the DSCV forward again (no random
+            # numbers: no RNG state to restore)
             cv, para_reproj = checkpoint(parallax_sweeping_cv_fused,
-                                         *dscv_args, use_reentrant=False)
+                                         *dscv_args, use_reentrant=False,
+                                         preserve_rng_state=False)
         else:
             cv, para_reproj = parallax_sweeping_cv_fused(*dscv_args)
 

@@ -106,8 +106,11 @@ class M4Depth(nn.Module):
             args = (f_pyr[idx], deeper, None if first else state[idx], rot,
                     trans, cam_l, new_traj)
             if remat:
+                # the model draws no random numbers: nothing to restore
+                # (and a CUDA graph's capture refuses the RNG's state)
                 deeper, new_states[idx] = checkpoint(
-                    self.levels[idx], *args, use_reentrant=False)
+                    self.levels[idx], *args, use_reentrant=False,
+                    preserve_rng_state=False)
             else:
                 deeper, new_states[idx] = self.levels[idx](*args)
             ests[idx] = deeper

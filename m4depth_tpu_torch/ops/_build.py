@@ -15,6 +15,8 @@ falls back: a missing compiler, a failed build or a failed launch raises.
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import ctypes
 import fcntl
 import hashlib
@@ -22,7 +24,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Callable, Dict, Iterable, Sequence
+from typing import Callable, Counter, Dict, Iterable, Sequence
 
 CSRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
@@ -126,12 +128,45 @@ def check_kernel_inputs(name: str, tensors, dtypes, device) -> None:
             raise ValueError(f"{name}: inputs must be contiguous")
 
 
+# the Counters of the CUDA-graph captures in progress, innermost last; a
+# capture's backward launches from autograd's device thread, so every
+# thread records into them
+_recording: list = []
+
+
+@contextlib.contextmanager
+def recording_launches():
+    """Count the launches captured into a CUDA graph in the block (onto a
+    capturing stream, from any thread) into the ``Counter`` it yields
+    (kernel -> launches), and not into the kernels' ``launches``: a
+    captured kernel runs only when the graph is replayed
+    (``add_launches``)."""
+    counts: Counter = collections.Counter()
+    _recording.append(counts)
+    try:
+        yield counts
+    finally:
+        # by identity: two open recordings may hold equal counts
+        del _recording[next(i for i, c in enumerate(_recording)
+                            if c is counts)]
+
+
+def add_launches(counts: Counter) -> None:
+    """Add a recorded capture's counts to its kernels' ``launches``: one
+    replay of the graph."""
+    for kernel, n in counts.items():
+        kernel.launches += n
+
+
 class CudaKernel:
     """One C entry point of a ``csrc`` source, built and loaded at first
     launch.
 
-    ``launches`` grows by one for each successful launch through
-    :meth:`launch`, and nowhere else.
+    ``launches`` counts the kernel's runs on the device: one for each
+    successful launch through :meth:`launch` outside a CUDA graph's
+    capture, and for each replay of a graph the launches its capture
+    recorded (``recording_launches``, ``add_launches``); a capture itself
+    adds none.
     """
 
     def __init__(self, source: str, symbol: str,
@@ -164,7 +199,11 @@ class CudaKernel:
 
         with torch.cuda.device(device):
             err = self._load()(*args)
+            captured = torch.cuda.is_current_stream_capturing()
         if err != 0:
             msg = self._errstr(err).decode()
             raise RuntimeError(f"{self.symbol}: CUDA error {err} ({msg})")
-        self.launches += 1
+        if not captured:
+            self.launches += 1
+        elif _recording:
+            _recording[-1][self] += 1

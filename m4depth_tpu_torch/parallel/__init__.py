@@ -14,6 +14,7 @@ from m4depth_tpu_torch.parallel.mesh import (
 from m4depth_tpu_torch.parallel.serving import (
     FreshFrameStream,
     assert_collective_free,
+    compile_step,
     replicate_params,
     shard_stream_inputs,
     sharded_stream,
@@ -22,6 +23,7 @@ from m4depth_tpu_torch.parallel.serving import (
 __all__ = [
     "FreshFrameStream",
     "assert_collective_free",
+    "compile_step",
     "data_axes",
     "data_group",
     "distributed_init",

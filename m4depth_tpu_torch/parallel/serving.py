@@ -13,10 +13,13 @@ in turn. The model's step is bound by the host's launches (PERF.md), so
 that split is slower than batching all N streams on one card; serving
 across cards needs one process or thread a card.
 
-``FreshFrameStream`` overlaps the next frame's host-to-device copy with the
-current frame's step. JAX's ``donate_state`` has no eager counterpart:
-each step's new state replaces the old one, whose blocks the caching
-allocator reuses, so steady-state serving allocates nothing new.
+``FreshFrameStream`` overlaps the next frame's host work with the current
+frame's step.
+
+Both run ``compile_step``, the counterpart of the JAX package's jitted,
+state-donating step: on the card one CUDA graph a device
+(``utils.graphs.Compiled``), its state held in the graph's buffers and
+updated in place by each replay, as ``donate_state`` does.
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ import numpy as np
 import torch
 
 from m4depth_tpu_torch.geometry import Camera
+from m4depth_tpu_torch.utils.graphs import Compiled, assign_
 
 # names of the profiler events that a collective records: the c10d ops
 # (c10d::allreduce_, c10d::broadcast_, ...) and the backends' own spans
@@ -35,6 +39,29 @@ from m4depth_tpu_torch.geometry import Camera
 COLLECTIVE_MARKERS = ("nccl", "gloo", "allreduce", "all_reduce",
                       "all_gather", "allgather", "broadcast",
                       "reduce_scatter")
+
+
+def compile_step(model) -> Compiled:
+    """``model.step`` (``M4Depth`` or ``M4DepthV1``) compiled, with its
+    state donated: ``step(state, rgb, rot, trans, camera, new_traj) ->
+    (state, depth)``. Counterpart of the JAX package's
+    ``jit_sharded_stream`` and ``FreshFrameStream``'s jitted step.
+
+    The step writes the new state into the ``state`` it is given and
+    returns it. On the card, from the second call with one signature on,
+    that is the graph's own state (pass it back: a state of another
+    origin is copied in first), and ``new_traj`` is an input, so a reset
+    replays the same graph. ``depth`` is a new tensor each call. The
+    compiled step holds one graph for each input signature it has seen
+    twice: one for a stream of frames of one shape.
+    """
+
+    def step(state, rgb, rot, trans, camera, new_traj):
+        new_state, depth = model.step(state, rgb, rot, trans, camera,
+                                      new_traj)
+        return assign_(state, new_state), depth
+
+    return Compiled(step)
 
 
 def replicate_params(model, devices: Sequence[torch.device]) -> list:
@@ -88,14 +115,16 @@ def sharded_stream(model, devices: Sequence[torch.device]):
     ``shard_stream_inputs(init_state(cfg, N, h, w), devices)`` makes, and
     the step returns its successor; the other inputs are whole batches of
     N streams, on any device. ``depth`` [N, h, w, 1] is in stream order on
-    ``devices[0]``. N must divide by the device count.
+    ``devices[0]``. N must divide by the device count. Each replica runs
+    its own ``compile_step`` (one graph a device on the card), which
+    updates its state shard in place.
 
     The replicas are stepped one after another from this thread: on a
     model bound by the host's launches, splitting over devices is slower
     than one device's batch of N.
     """
     devices = [torch.device(d) for d in devices]
-    replicas = replicate_params(model, devices)
+    steps = [compile_step(m) for m in replicate_params(model, devices)]
 
     def step(state: List, rgb, rot, trans, camera: Camera, new_traj):
         if len(state) != len(devices):
@@ -103,7 +132,7 @@ def sharded_stream(model, devices: Sequence[torch.device]):
                              f"{len(devices)} devices")
         shards = shard_stream_inputs((rgb, rot, trans, camera, new_traj),
                                      devices)
-        out = [m.step(s, *x) for m, s, x in zip(replicas, state, shards)]
+        out = [st(s, *x) for st, s, x in zip(steps, state, shards)]
         depths = [d for _, d in out]
         if len(depths) == 1:
             return [out[0][0]], depths[0]
@@ -119,11 +148,13 @@ class FreshFrameStream:
 
     ``push(frame t)`` copies the host frame (numpy arrays) into one of two
     pinned host buffers, issues its host-to-device copy on a side stream
-    and records an event, then launches frame t-1's step on the current
-    stream, which waits on frame t-1's event first. So frame t's copy rides
-    under frame t-1's step. It returns frame t-1's depth as a device tensor
-    (``None`` on the first call); ``flush()`` runs the last staged frame,
-    and a second ``flush()`` returns ``None``.
+    and records an event, then launches frame t-1's step (``compile_step``:
+    on the card a replay of its graph, which copies the staged frame into
+    its inputs) on the current stream, which waits on frame t-1's event
+    first. So frame t's copy rides under frame t-1's step. It returns frame
+    t-1's depth as a device tensor (``None`` on the first call);
+    ``flush()`` runs the last staged frame, and a second ``flush()``
+    returns ``None``.
 
     A pinned buffer is reused two frames later: before the host overwrites
     it, it waits for the event of the copy that read it. The device tensors
@@ -136,7 +167,7 @@ class FreshFrameStream:
     """
 
     def __init__(self, model, state, *, device: torch.device):
-        self._model = model
+        self._step = compile_step(model)
         self._state = state
         self._device = torch.device(device)
         self._cuda = self._device.type == "cuda"
@@ -181,7 +212,7 @@ class FreshFrameStream:
         if event is not None:
             torch.cuda.current_stream(self._device).wait_event(event)
         rgb, rot, trans, f, c, new_traj = dev
-        self._state, depth = self._model.step(
+        self._state, depth = self._step(
             self._state, rgb, rot, trans, Camera(f, c), new_traj)
         return depth
 

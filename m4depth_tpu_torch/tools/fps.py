@@ -1,19 +1,23 @@
-"""Streaming frames per second of ``M4Depth.step``, with an optional
-device-time breakdown by component. Counterpart of ``tools/fps.py``.
+"""Streaming frames per second of the compiled ``M4Depth.step``, with an
+optional device-time breakdown by component. Counterpart of
+``tools/fps.py``.
 
 The d``--levels`` model (bfloat16 convs, ``--cv_dtype`` cost volumes,
 weights from seed 0) streams one frame after another at ``--size`` (or
 ``--height`` x ``--width``), batch ``--batch``, under bench.py's motion
-(``--trans`` sets the translation, and with it the epipolar field). After
-10 frames of warm-up, the best of 3 runs of ``--n`` frames, each ending in
-a synchronise, gives ms/frame and frames/s.
+(``--trans`` sets the translation, and with it the epipolar field),
+through ``parallel.serving.compile_step`` (one CUDA graph replayed a frame
+on the card, as the JAX tool times its jitted step). After 10 frames of
+warm-up, the best of 3 runs of ``--n`` frames, each ending in a
+synchronise, gives ms/frame and frames/s.
 
-``--profile`` then records ``PROFILED_FRAMES`` frames with
-``utils.profiling.device_trace`` (with the Python stack) and splits their
-device time by component: the cost-volume kernels by name (``sncv``,
-``dscv``), the other kernels by the module they were launched under
-(``encoder``, ``refiner``), else ``other``; and lists the kernels that take
-most, with the aten op that launched each. On the card:
+``--profile`` then records ``PROFILED_FRAMES`` frames of the eager
+``M4Depth.step`` (a replay has no Python stack to attribute its kernels
+by) with ``utils.profiling.device_trace`` (with the Python stack) and
+splits their device time by component: the cost-volume kernels by name
+(``sncv``, ``dscv``), the other kernels by the module they were launched
+under (``encoder``, ``refiner``), else ``other``; and lists the kernels
+that take most, with the aten op that launched each. On the card:
 
   python -m m4depth_tpu_torch.tools.fps --n 200 --profile
 
@@ -35,6 +39,7 @@ from m4depth_tpu_torch import resolve_device
 from m4depth_tpu_torch.config import DTYPES, ModelConfig
 from m4depth_tpu_torch.geometry import Camera
 from m4depth_tpu_torch.models import M4Depth, init_state
+from m4depth_tpu_torch.parallel.serving import compile_step
 from m4depth_tpu_torch.utils.profiling import device_breakdown, device_trace
 
 WARMUP_FRAMES = 10
@@ -67,8 +72,9 @@ def parse_args(argv=None):
 
 
 def make_stream(a):
-    """(run(n) -> last depth, device): ``n`` streamed frames of the model
-    with its recurrent state carried across calls."""
+    """(run(n, new_traj, eager) -> last depth, device): ``n`` streamed
+    frames of the compiled step (``eager``: of ``M4Depth.step``), the
+    recurrent state carried across calls."""
     dev = resolve_device(a.device)
     cfg = ModelConfig(num_levels=a.levels, compute_dtype="bfloat16",
                       cv_dtype=a.cv_dtype)
@@ -85,13 +91,15 @@ def make_stream(a):
     go = torch.zeros((b,), dtype=torch.bool, device=dev)
     start = torch.ones((b,), dtype=torch.bool, device=dev)
     holder = dict(state=init_state(cfg, b, h, w, device=dev))
+    compiled = compile_step(model)
 
     @torch.no_grad()
-    def run(n: int, new_traj: bool = False):
+    def run(n: int, new_traj: bool = False, eager: bool = False):
+        step = model.step if eager else compiled
         for i in range(n):
             nt = start if new_traj and i == 0 else go
-            holder["state"], depth = model.step(holder["state"], rgb, rot,
-                                                trans, cam, nt)
+            holder["state"], depth = step(holder["state"], rgb, rot, trans,
+                                          cam, nt)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         return depth
@@ -141,7 +149,7 @@ def run(a) -> dict:
     if a.profile:
         log_dir = a.log_dir or tempfile.mkdtemp(prefix="m4depth_fps_")
         with device_trace(log_dir, with_stack=True) as trace:
-            stream(PROFILED_FRAMES)
+            stream(PROFILED_FRAMES, eager=True)
         out["trace"] = trace.path
         out["breakdown"] = device_breakdown(trace.path, PROFILED_FRAMES)
         out["components_us"] = components(out["breakdown"])
@@ -157,7 +165,8 @@ def main(argv=None) -> int:
           f"cv_dtype={a.cv_dtype} device={r['device']} (best of {REPEATS} "
           f"runs of {a.n} frames)", flush=True)
     if a.profile:
-        print(f"trace: {r['trace']}")
+        print(f"trace: {r['trace']} (the eager step: a CUDA graph's replay "
+              "has no Python stack to attribute kernels by)")
         print_breakdown(r["breakdown"], r["components_us"], "frame")
     return 0 if r["finite"] else 1
 

@@ -4,7 +4,9 @@ Counterpart of ``tools/fresh_frame_bench.py``.
 The online use case feeds one camera frame at a time: every frame is a
 distinct host array that must reach the device before its step. Five loop
 shapes are timed, each over ``--frames`` frames in BLOCKS blocks
-(ms/frame: the median of the blocks, with the smallest and largest):
+(ms/frame: the median of the blocks, with the smallest and largest), each
+through its own compiled step (``parallel.serving.compile_step``: a CUDA
+graph on the card, as the JAX tool jits its steps):
 
   * serial    -- copy the frame (and its motion) to the device, step;
   * pipelined -- ``parallel.FreshFrameStream``: frame t's copy from pinned
@@ -36,7 +38,7 @@ from m4depth_tpu_torch import resolve_device
 from m4depth_tpu_torch.config import ModelConfig
 from m4depth_tpu_torch.geometry import Camera
 from m4depth_tpu_torch.models import M4Depth, init_state
-from m4depth_tpu_torch.parallel import FreshFrameStream
+from m4depth_tpu_torch.parallel import FreshFrameStream, compile_step
 
 VARIANTS = ("serial", "pipelined", "u8", "delayed", "kblock")
 KBLOCK = 16
@@ -88,11 +90,13 @@ def make_bench(a):
     # each loop carries its own model state across its blocks
     states = {name: init_state(cfg, b, hw, hw, device=dev)
               for name in ("serial", "u8", "delayed", "kblock")}
+    # one compiled step a loop: each donates its own loop's state
+    steps = {name: compile_step(model) for name in states}
     sess = FreshFrameStream(model, init_state(cfg, b, hw, hw, device=dev),
                             device=dev)
 
     def stepped(name, rgb):
-        states[name], depth = model.step(states[name], rgb, *motion())
+        states[name], depth = steps[name](states[name], rgb, *motion())
         return depth
 
     def serial(first, n):

@@ -1,11 +1,14 @@
 """Device memory of streaming inference, against the reference's claim of
 ~500 MB (its README.md:15). Counterpart of ``tools/memory_footprint.py``.
 
-Streams ``M4Depth.step`` (d``--levels`` at ``--size`` x ``--size``, b=1,
-bfloat16 convs, ``--cv_dtype`` cost volumes, weights from seed 0) for a
-few frames after reading the allocator at the start, then reports the
-parameters' and the recurrent state's bytes, ``memory_allocated()``, and
-the peak above the start (``max_memory_allocated()``). On the card:
+Streams the compiled ``M4Depth.step`` (``parallel.serving.compile_step``:
+its eager warm-up, the CUDA graph's capture, then replays; d``--levels``
+at ``--size`` x ``--size``, b=1, bfloat16 convs, ``--cv_dtype`` cost
+volumes, weights from seed 0) for a few frames after reading the
+allocator at the start, then reports the parameters' and the recurrent
+state's bytes, ``memory_allocated()``, the peak above the start
+(``max_memory_allocated()``) and the bytes that the graph's private pool
+holds (``Compiled.pool_bytes``). On the card:
 
   python -m m4depth_tpu_torch.tools.memory_footprint
 
@@ -26,6 +29,7 @@ from m4depth_tpu_torch import resolve_device
 from m4depth_tpu_torch.config import DTYPES, ModelConfig
 from m4depth_tpu_torch.geometry import Camera
 from m4depth_tpu_torch.models import M4Depth, init_state
+from m4depth_tpu_torch.parallel.serving import compile_step
 
 REFERENCE_CLAIM_MB = 500
 WARMUP_FRAMES = 3
@@ -49,7 +53,7 @@ def nbytes(tree) -> int:
 
 def run(a) -> dict:
     """The footprint, in bytes: ``params``, ``state``, and on the card
-    ``allocated`` and ``peak_above_start``."""
+    ``allocated``, ``peak_above_start`` and ``graph_pool``."""
     dev = resolve_device(a.device)
     on_card = dev.type == "cuda"
     if on_card:
@@ -68,16 +72,18 @@ def run(a) -> dict:
     trans = torch.tensor([[0.05, 0.02, 0.4]], device=dev)
     f = torch.full((b, 2), a.size / 2.0, device=dev)
     cam = Camera(f, f.clone())
+    step = compile_step(model)
     with torch.no_grad():
         for t in range(WARMUP_FRAMES):
-            state, depth = model.step(state, rgb, rot, trans, cam,
-                                      torch.full((b,), t == 0, device=dev))
+            state, depth = step(state, rgb, rot, trans, cam,
+                                torch.full((b,), t == 0, device=dev))
     out = dict(params=nbytes(list(model.parameters())), state=nbytes(state),
                finite=bool(torch.isfinite(depth).all()))
     if on_card:
         torch.cuda.synchronize(dev)
         out["allocated"] = torch.cuda.memory_allocated(dev) - start
         out["peak_above_start"] = torch.cuda.max_memory_allocated(dev) - start
+        out["graph_pool"] = step.pool_bytes()
     return out
 
 
@@ -94,6 +100,8 @@ def main(argv=None) -> int:
         print(f"peak above start:    {r['peak_above_start'] / MIB:10.3f} "
               f"MiB (reference claim: ~{REFERENCE_CLAIM_MB} MB, its "
               "README.md:15)")
+        print(f"CUDA graph's pool:   {r['graph_pool'] / MIB:10.3f} MiB "
+              "(the replayed frame's intermediates)")
     else:
         print("device memory: not measured (no CUDA device in this run)")
     return 0 if r["finite"] else 1

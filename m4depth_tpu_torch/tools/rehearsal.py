@@ -113,23 +113,19 @@ def write_valdata(workdir: str, h: int, w: int) -> list:
 
 @torch.no_grad()
 def heldout_eval(model, batches, dev) -> dict:
-    """The seven metrics on host-rendered scenes, averaged over batches."""
-    from m4depth_tpu_torch.metrics import clip_for_eval, compute_metrics
+    """The seven metrics on host-rendered scenes, averaged over batches,
+    through the compiled windowed eval step (one CUDA graph on the card,
+    as the JAX tool jits its eval)."""
+    from m4depth_tpu_torch.metrics import MetricAccumulator
     from m4depth_tpu_torch.train.loop import to_device
-    from m4depth_tpu_torch.train.step import batch_camera
+    from m4depth_tpu_torch.train.step import compile_windowed_eval_step
 
-    agg, n = {}, 0
+    step = compile_windowed_eval_step(model)
+    acc = MetricAccumulator.zeros(dev)
     for batch in batches:
-        batch = to_device({k: v for k, v in batch.items()
-                           if k != "new_traj"}, dev)
-        preds = model(batch["rgb"], batch["rot"], batch["trans"],
-                      batch_camera(batch))
-        gt = batch["depth"][:, -1]
-        est = model.final_depth(preds, gt.shape[1:3])
-        for k, v in compute_metrics(*clip_for_eval(gt, est)).items():
-            agg[k] = agg.get(k, 0.0) + float(v)
-        n += 1
-    return {k: round(v / n, 4) for k, v in agg.items()}
+        acc = step(to_device({k: v for k, v in batch.items()
+                              if k != "new_traj"}, dev), acc)
+    return {k: round(float(v), 4) for k, v in acc.result().items()}
 
 
 def run(a) -> dict:

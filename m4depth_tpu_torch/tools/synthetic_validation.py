@@ -15,8 +15,10 @@ quickly; a geometry fault caps the accuracy it can reach.
 
 The d``--levels`` model runs in bfloat16 at ``--size`` x ``--size``, with
 Adam after a global-norm clip at 1.0, at a linear warm-up from 0 and a
-cosine decay to 5% at ``--steps`` (``warmup_cosine_schedule``). Runs on
-the CUDA device unless ``--platform=cpu``:
+cosine decay to 5% at ``--steps`` (``warmup_cosine_schedule``). The
+training and the evaluation run compiled (``compile_train_step``,
+``compile_windowed_eval_step``: CUDA graphs on the card), as the JAX tool
+jits both. Runs on the CUDA device unless ``--platform=cpu``:
 
   python -m m4depth_tpu_torch.tools.synthetic_validation --mode overfit
   python -m m4depth_tpu_torch.tools.synthetic_validation --mode overfit \\
@@ -102,11 +104,14 @@ def main(argv=None) -> int:
         DeviceSyntheticStream,
         SyntheticGeometricDataset,
     )
-    from m4depth_tpu_torch.metrics import clip_for_eval, compute_metrics
+    from m4depth_tpu_torch.metrics import MetricAccumulator
     from m4depth_tpu_torch.models import M4Depth, M4DepthV1
-    from m4depth_tpu_torch.train import make_optimizer, make_train_step
+    from m4depth_tpu_torch.train import (
+        compile_train_step,
+        compile_windowed_eval_step,
+        make_optimizer,
+    )
     from m4depth_tpu_torch.train.loop import to_device
-    from m4depth_tpu_torch.train.step import batch_camera
 
     dev = resolve_device("cpu" if a.platform == "cpu" else "cuda")
     cfg = ModelConfig(num_levels=a.levels, compute_dtype="bfloat16")
@@ -132,7 +137,7 @@ def main(argv=None) -> int:
     opt = make_optimizer(model, TrainConfig(learning_rate=a.lr,
                                             grad_clip_norm=1.0))
     opt.lr_schedule = warmup_cosine_schedule(a.lr, a.steps)
-    step = make_train_step(model, opt)
+    step = compile_train_step(model, opt)
 
     t0 = time.perf_counter()
     for i, batch in enumerate(stream):
@@ -152,18 +157,12 @@ def main(argv=None) -> int:
     else:
         eval_ds = SyntheticGeometricDataset(
             n_batches=8, batch_size=a.batch, T=a.T, h=h, w=w, seed=7777)
-    totals, n = {}, 0
+    eval_step = compile_windowed_eval_step(model)
+    acc = MetricAccumulator.zeros(dev)
     with torch.no_grad():
         for batch in eval_ds.batches(0):
-            batch = to_device(batch, dev)
-            preds = model(batch["rgb"], batch["rot"], batch["trans"],
-                          batch_camera(batch))
-            gt = batch["depth"][:, -1]
-            est = model.final_depth(preds, gt.shape[1:3])
-            for k, v in compute_metrics(*clip_for_eval(gt, est)).items():
-                totals[k] = totals.get(k, 0.0) + float(v)
-            n += 1
-    results = {k: v / n for k, v in totals.items()}
+            acc = eval_step(to_device(batch, dev), acc)
+    results = {k: float(v) for k, v in acc.result().items()}
     label = "fitted-batch" if a.mode == "overfit" else "held-out"
     print(f"{label}:", {k: round(v, 4) for k, v in results.items()},
           flush=True)

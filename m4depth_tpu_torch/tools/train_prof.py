@@ -1,12 +1,15 @@
 """Training-step profiler with non-overlapping attribution. Counterpart of
 ``tools/train_prof.py``.
 
-Times ``make_train_step`` (d``--levels`` at ``--size``, batch ``--batch``,
-``--seq`` frames, bfloat16 convs, ``--cv_dtype`` cost volumes, Adam at
-1e-4, weights from seed 0, a seeded batch; ``--remat`` with
-``--remat_policy``): the first step, then the best of 3 runs of
-``--steps`` steps. Then it records ``PROFILED_STEPS`` steps with
-``utils.profiling.device_trace`` (with the Python stack) and splits their
+Times ``compile_train_step`` (one CUDA graph replayed a step on the card,
+as the JAX tool times its jitted step; d``--levels`` at ``--size``, batch
+``--batch``, ``--seq`` frames, bfloat16 convs, ``--cv_dtype`` cost
+volumes, Adam at 1e-4, weights from seed 0, a seeded batch; ``--remat``
+with ``--remat_policy``): the first step, then the best of 3 runs of
+``--steps`` steps. Then it records ``PROFILED_STEPS`` steps of the eager
+``make_train_step`` of the same model and weights (a replay has no Python
+stack to attribute its kernels by) with ``utils.profiling.device_trace``
+(with the Python stack) and splits their
 device time without overlap: each device time point goes to the innermost
 device event open at it, and each event to (direction, component). A
 kernel launched inside an autograd backward node
@@ -42,7 +45,11 @@ from m4depth_tpu_torch.config import (
 from m4depth_tpu_torch.models import M4Depth
 from m4depth_tpu_torch.testing import train_batch
 from m4depth_tpu_torch.tools.fps import print_breakdown
-from m4depth_tpu_torch.train import make_optimizer, make_train_step
+from m4depth_tpu_torch.train import (
+    compile_train_step,
+    make_optimizer,
+    make_train_step,
+)
 from m4depth_tpu_torch.utils.profiling import device_breakdown, device_trace
 
 WARMUP_STEPS = 3
@@ -81,12 +88,12 @@ def run(a) -> dict:
                       cv_dtype=a.cv_dtype, remat=a.remat,
                       remat_policy=a.remat_policy)
     model = M4Depth(cfg, device=dev, seed=0)
-    step = make_train_step(model, make_optimizer(model, TrainConfig()))
+    step = compile_train_step(model, make_optimizer(model, TrainConfig()))
     batch = train_batch(a.batch, a.seq, a.size, 0, ROT, TRANS, dev)
 
-    def steps(n: int) -> float:
+    def steps(n: int, fn=step) -> float:
         for _ in range(n):
-            scalars = step(batch)
+            scalars = fn(batch)
         return float(scalars["loss"])          # waits for the device
 
     t0 = time.perf_counter()
@@ -102,8 +109,9 @@ def run(a) -> dict:
                device=str(dev))
     if not a.no_profile:
         log_dir = a.log_dir or tempfile.mkdtemp(prefix="m4depth_train_prof_")
+        eager = make_train_step(model, make_optimizer(model, TrainConfig()))
         with device_trace(log_dir, with_stack=True) as trace:
-            steps(PROFILED_STEPS)
+            steps(PROFILED_STEPS, eager)
         out["trace"] = trace.path
         out["breakdown"] = device_breakdown(trace.path, PROFILED_STEPS)
     return out
@@ -121,7 +129,8 @@ def main(argv=None) -> int:
           flush=True)
     if "breakdown" in r:
         bd = r["breakdown"]
-        print(f"trace: {r['trace']}")
+        print(f"trace: {r['trace']} (the eager step: a CUDA graph's replay "
+              "has no Python stack to attribute kernels by)")
         print_breakdown(bd, {f"{d:4s} {c}": us
                              for (d, c), us in bd["groups"].items()}, "step")
         if bd["n_events"]:

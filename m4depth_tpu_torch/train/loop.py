@@ -11,7 +11,10 @@ The batches of a numpy dataset reach the device from pinned host memory
 with ``non_blocking=True``; a dataset that yields tensors already on the
 model's device (``DeviceSyntheticStream``) is used as it is.
 
-Under a process group ``fit`` trains data parallel over ``mesh``: each
+Without a mesh ``fit`` runs ``compile_train_step``, the counterpart of
+the JAX package's jitted, state-donating step: on the card one CUDA graph
+a step. With a mesh (a process group, even of one rank) it trains data
+parallel over ``mesh`` with the eager DDP step (``make_train_step``): each
 rank steps on its own slice of the global batch (the dataset's
 ``host_shard``), every rank resumes from the same checkpoint directory,
 rank 0 alone writes checkpoints and logs and runs validation, and the
@@ -39,6 +42,7 @@ from m4depth_tpu_torch.train.checkpoints import (
     TrainCheckpointManager,
 )
 from m4depth_tpu_torch.train.step import (
+    compile_train_step,
     create_train_state,
     data_parallel,
     make_train_step,
@@ -118,10 +122,11 @@ def fit(
     """Train to ``total_steps`` optimizer steps (the reference's semantics:
     epochs = total_steps // len(dataset)).
 
-    With ``mesh`` (``parallel.make_mesh``) the step runs through
-    ``data_parallel``: ``dataset`` then yields this rank's share of each
-    global batch, and ``len(dataset)`` must be the same on every rank. A
-    process group of more than one rank needs a mesh.
+    With ``mesh`` (``parallel.make_mesh``; a process group of more than
+    one rank needs one) the step runs eagerly through ``data_parallel``,
+    and says so: ``dataset`` then yields this rank's share of each global
+    batch, and ``len(dataset)`` must be the same on every rank. Without a
+    mesh the step is ``compile_train_step``'s.
 
     Returns the final ``TrainState``. Raises ``NaNStop`` on a non-finite
     loss without saving the poisoned state (on every rank at the same
@@ -168,10 +173,17 @@ def fit(
             ckpt_mgr.directory, os.path.join(cfg.ckpt_dir, "best"),
             keep_top_n=cfg.keep_top_n)
 
-    step = make_train_step(
-        data_parallel(model, mesh) if mesh is not None else model,
-        state.optimizer, with_images=bool(cfg.log_dir) and main,
-        augment_fn=augment_fn, augment_seed=cfg.seed)
+    step_args = dict(with_images=bool(cfg.log_dir) and main,
+                     augment_fn=augment_fn, augment_seed=cfg.seed)
+    if mesh is not None:
+        if main:
+            print(f"fit: data parallel over {world} rank(s) runs the eager "
+                  "DDP step (DDP is not captured in a CUDA graph)",
+                  flush=True)
+        step = make_train_step(data_parallel(model, mesh), state.optimizer,
+                               **step_args)
+    else:
+        step = compile_train_step(model, state.optimizer, **step_args)
     # images of the global batch a step
     meter = ThroughputMeter(dataset.batch_size * sample["rgb"].shape[1]
                             * world)

@@ -94,12 +94,9 @@ class Optimizer:
     grad_clip_norm: float = 0.0
     count: int = 0
 
-    def apply_gradients(self) -> torch.Tensor:
-        """Clip the parameters' ``.grad`` and take one Adam step; returns
-        the global gradient norm before the clip."""
-        params = [p for g in self.adam.param_groups for p in g["params"]
-                  if p.grad is not None]
-        grads = [p.grad for p in params]
+    def clip_(self, grads) -> torch.Tensor:
+        """Clip ``grads`` in place by their global norm (when
+        ``grad_clip_norm`` is set); returns the norm before the clip."""
         norm = global_norm(grads)
         if self.grad_clip_norm > 0:
             # optax: g / |g| * max once |g| >= max (clip_grad_norm_ would
@@ -108,11 +105,37 @@ class Optimizer:
             for g in grads:
                 g.copy_(torch.where(keep, g,
                                     g / norm * self.grad_clip_norm))
+        return norm
+
+    def apply_gradients(self) -> torch.Tensor:
+        """Clip the parameters' ``.grad`` and take one Adam step; returns
+        the global gradient norm before the clip."""
+        params = [p for g in self.adam.param_groups for p in g["params"]
+                  if p.grad is not None]
+        norm = self.clip_([p.grad for p in params])
         lr = self.lr_schedule(self.count)
         for group in self.adam.param_groups:
             group["lr"] = lr
         self.adam.step()
         self.count += 1
+        return norm
+
+    @torch.no_grad()
+    def apply_gradients_at(self, lr: torch.Tensor) -> torch.Tensor:
+        """``apply_gradients`` as a compiled step runs it: the clip, then
+        ``adam_update_`` at the learning rate ``lr``, a 0-d tensor on the
+        parameters' device, so that nothing is read on the host. The Adam
+        state must exist (``init_adam_state``); ``count`` and the groups'
+        rates are the caller's to advance. Returns the global gradient
+        norm before the clip."""
+        params = [p for g in self.adam.param_groups for p in g["params"]
+                  if p.grad is not None]
+        grads = [p.grad for p in params]
+        norm = self.clip_(grads)
+        state = [self.adam.state[p] for p in params]
+        adam_update_(params, grads, [s["exp_avg"] for s in state],
+                     [s["exp_avg_sq"] for s in state],
+                     [s["step"] for s in state], lr)
         return norm
 
 
@@ -249,34 +272,65 @@ def make_train_step(
     global batch's). Every rank gets the same scalars, so every rank's NaN
     tripwire stops at the same step.
     """
+    return _train_step(_train_body(model, optimizer, with_images,
+                                   optimizer.apply_gradients),
+                       optimizer, augment_fn, augment_seed)
+
+
+def _train_body(model, optimizer: Optimizer, with_images: bool,
+                apply_gradients: Callable[[], torch.Tensor]
+                ) -> Callable[[Batch], Dict[str, Any]]:
+    """The step both ``make_train_step`` and ``compile_train_step`` run:
+    the window's forward, the loss, the backward, ``apply_gradients()``
+    (which returns the global gradient norm before the clip), RMSE_log and
+    the images. Returns ``{"scalars": [loss, RMSE_log, grad_norm]}`` as one
+    stacked tensor, and ``"images"`` with ``with_images``. Through the
+    ``data_parallel`` wrapper the loss is the global batch's and ``loss``
+    and ``RMSE_log`` are the means over the ranks."""
     from torch.nn.parallel import DistributedDataParallel
 
     ddp = isinstance(model, DistributedDataParallel)
     core = model.module if ddp else model
     group = model.process_group if ddp else None
 
-    def train_step(batch: Batch) -> Dict[str, torch.Tensor]:
-        if augment_fn is not None:
-            batch = augment_fn(batch, augment_seed, optimizer.count)
+    def body(batch: Batch) -> Dict[str, Any]:
         camera = batch_camera(batch)
         preds = model(batch["rgb"], batch["rot"], batch["trans"], camera)
         loss = core.loss(batch["depth"], preds, group=group)
         optimizer.adam.zero_grad(set_to_none=True)
         loss.backward()
-        grad_norm = optimizer.apply_gradients()
+        grad_norm = apply_gradients()
         with torch.no_grad():
             gt = batch["depth"][:, -1]
             rmse = _rmse_log(gt, core.final_depth(preds, gt.shape[1:3]))
-            loss = loss.detach()
+            both = torch.stack([loss.detach(), rmse.float()])
             if ddp:
-                both = torch.stack([loss, rmse.float()])
                 dist.all_reduce(both, group=group)
-                loss, rmse = both / dist.get_world_size(group)
-            out = {"loss": loss, "RMSE_log": rmse,
-                   "grad_norm": grad_norm}
+                both = both / dist.get_world_size(group)
+            out = {"scalars": torch.cat([both, grad_norm.reshape(1)])}
             if with_images:
                 out["images"] = _summary_images(batch, preds, camera)
         return out
+
+    return body
+
+
+def _train_step(run: Callable[[Batch], Dict[str, Any]], optimizer: Optimizer,
+                augment_fn, augment_seed: int
+                ) -> Callable[[Batch], Dict[str, torch.Tensor]]:
+    """``train_step(batch)``: ``augment_fn`` at the optimiser's count,
+    then ``run`` (a ``_train_body``, or its compiled form), its stacked
+    scalars returned by name."""
+
+    def train_step(batch: Batch) -> Dict[str, torch.Tensor]:
+        if augment_fn is not None:
+            batch = augment_fn(batch, augment_seed, optimizer.count)
+        out = run(batch)
+        loss, rmse, grad_norm = out["scalars"]
+        result = {"loss": loss, "RMSE_log": rmse, "grad_norm": grad_norm}
+        if "images" in out:
+            result["images"] = out["images"]
+        return result
 
     return train_step
 
@@ -316,3 +370,143 @@ def make_streaming_eval_step(model: M4Depth):
         return model_state, acc
 
     return eval_step
+
+
+# -- compiled steps: the counterparts of the JAX package's jitted steps -------
+
+
+def init_adam_state(optimizer: Optimizer) -> None:
+    """Give each parameter of ``optimizer`` the Adam state that
+    ``torch.optim.Adam`` makes at its first step (a step count and two
+    zero moments), where it has none yet, with the step counts on the
+    parameters' device, as ``adam_update_`` takes them. The layout is
+    ``torch.optim.Adam``'s own, so a checkpoint (``TrainState.state_dict``)
+    loads into either step."""
+    adam = optimizer.adam
+    for group in adam.param_groups:
+        for p in group["params"]:
+            state = adam.state[p]
+            if not state:
+                state["step"] = torch.zeros((), dtype=torch.float32)
+                state["exp_avg"] = torch.zeros_like(
+                    p, memory_format=torch.preserve_format)
+                state["exp_avg_sq"] = torch.zeros_like(
+                    p, memory_format=torch.preserve_format)
+            state["step"] = state["step"].to(p.device, torch.float32)
+
+
+def adam_update_(params, grads, exp_avgs, exp_avg_sqs, steps,
+                 lr: torch.Tensor) -> None:
+    """One Adam update of ``params`` in place (``torch.optim.Adam``'s and
+    optax's arithmetic: betas 0.9/0.999, eps 1e-8), with the learning rate
+    ``lr`` and the step counts ``steps`` as tensors on the parameters'
+    device: nothing is read on the host, so a CUDA graph replays it with
+    each step's rate and count. Every parameter has taken the same number
+    of steps."""
+    b1, b2 = ADAM_BETAS
+    torch._foreach_add_(steps, 1.0)
+    torch._foreach_lerp_(exp_avgs, grads, 1 - b1)
+    torch._foreach_mul_(exp_avg_sqs, b2)
+    torch._foreach_addcmul_(exp_avg_sqs, grads, grads, value=1 - b2)
+    # the bias corrections in float64, as torch.optim.Adam takes them on
+    # the host: in float32, 1 - 0.999^t loses five digits at small t
+    t = steps[0].double()
+    step_size = (lr.double() / (1 - torch.pow(b1, t))).float()
+    denom = torch._foreach_sqrt(exp_avg_sqs)
+    torch._foreach_div_(denom, torch.sqrt(1 - torch.pow(b2, t)).float())
+    torch._foreach_add_(denom, ADAM_EPS)
+    torch._foreach_div_(denom, step_size)
+    # p -= step_size * m / (sqrt(v / bc2) + eps)
+    torch._foreach_addcdiv_(params, exp_avgs, denom, value=-1.0)
+
+
+def compile_train_step(
+    model: M4Depth,
+    optimizer: Optimizer,
+    with_images: bool = False,
+    augment_fn: Optional[Callable[[Batch, int, int], Batch]] = None,
+    augment_seed: int = 0,
+) -> Callable[[Batch], Dict[str, torch.Tensor]]:
+    """``make_train_step``'s step on one process, compiled: the
+    counterpart of the JAX package's ``jit_data_parallel(
+    make_train_step(...))``, which donates the train state. Same
+    arguments and results as ``make_train_step`` (a data-parallel wrapper
+    is refused: it runs eagerly).
+
+    On the card the window's forward, the loss, the backward, the clip and
+    Adam are one CUDA graph (``utils.graphs.Compiled``); the parameters,
+    the Adam state and the gradients are its buffers, updated in place.
+    The schedule stays on the host: each step's rate is written into a
+    device scalar before the replay, and Adam runs as ``adam_update_``
+    with that rate and device step counts, on the CPU too, where the step
+    runs eagerly. ``augment_fn`` runs eagerly on the batch before it is
+    copied into the graph's inputs. The results are copied out of the
+    graph's buffers (the scalars as one stacked copy), so a loss held
+    across later steps (``fit``'s lagged NaN tripwire) keeps its value.
+
+    The Adam state is made here (``init_adam_state``): load a checkpoint
+    into ``optimizer`` before compiling. The compiled step holds one graph
+    for each batch signature it has seen twice.
+    """
+    from torch.nn.parallel import DistributedDataParallel
+
+    from m4depth_tpu_torch.utils.graphs import Compiled
+
+    if isinstance(model, DistributedDataParallel):
+        raise ValueError("compile_train_step runs on one process; the "
+                         "data-parallel step is make_train_step's")
+    adam = optimizer.adam
+    init_adam_state(optimizer)
+    lr = torch.zeros((), dtype=torch.float32,
+                     device=adam.param_groups[0]["params"][0].device)
+
+    compiled = Compiled(_train_body(model, optimizer, with_images,
+                                    lambda: optimizer.apply_gradients_at(lr)))
+
+    def run(batch: Batch) -> Dict[str, Any]:
+        rate = optimizer.lr_schedule(optimizer.count)
+        lr.fill_(rate)
+        for group in adam.param_groups:
+            group["lr"] = rate
+        out = compiled(batch)
+        optimizer.count += 1
+        return out
+
+    train_step = _train_step(run, optimizer, augment_fn, augment_seed)
+    train_step.compiled = compiled
+    return train_step
+
+
+def compile_windowed_eval_step(model: M4Depth):
+    """``make_windowed_eval_step`` compiled, the window's forward and the
+    metric update in one CUDA graph on the card: ``eval_step(batch, acc)
+    -> acc``. The accumulator is donated: the step adds to its ``totals``
+    and ``count`` in place and returns it (on the card, from the second
+    call on, the graph's own; pass it back)."""
+    from m4depth_tpu_torch.utils.graphs import Compiled, assign_
+
+    step = make_windowed_eval_step(model)
+
+    def body(batch: Batch, acc: MetricAccumulator) -> MetricAccumulator:
+        return assign_(acc, step(batch, acc))
+
+    return Compiled(body)
+
+
+def compile_streaming_eval_step(model: M4Depth):
+    """``make_streaming_eval_step`` compiled, the model's step and the
+    metric update in one CUDA graph on the card: ``eval_step(model_state,
+    frame, acc) -> (model_state, acc)``. The model state and the
+    accumulator are donated, updated in place and returned (on the card,
+    from the second call on, the graph's own; pass them back). A
+    ``new_traj`` frame's weight 0 is computed on the device, so a reset
+    replays the same graph."""
+    from m4depth_tpu_torch.utils.graphs import Compiled, assign_
+
+    step = make_streaming_eval_step(model)
+
+    def body(model_state: ModelState, frame: Batch, acc: MetricAccumulator
+             ) -> Tuple[ModelState, MetricAccumulator]:
+        return assign_((model_state, acc), step(model_state, frame, acc))
+
+    return Compiled(body)

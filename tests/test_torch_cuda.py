@@ -8,7 +8,9 @@ GPU host without JAX it runs as
     python -m pytest --noconftest tests/test_torch_cuda.py -q -m cuda
 
 Each kernel is held against its plain PyTorch version on the same inputs;
-each backward kernel against autograd of the plain forward.
+each backward kernel against autograd of the plain forward. The compiled
+programs (CUDA graphs of the serving, eval and train steps) are held
+against the eager steps, with their captures, replays and launch counts.
 """
 
 import contextlib
@@ -716,3 +718,147 @@ def test_kernels_launch_on_their_inputs_device(cuda):
                                           Camera(f, c), 4, 2, torch.float32)
     torch.testing.assert_close(cv, ref_cv, **DSCV_CV_TOL)
     torch.testing.assert_close(pc, ref_pc, **DSCV_PARA_TOL)
+
+
+# -- compiled programs (CUDA graphs) ------------------------------------------
+
+
+def _graph_frames(b, hw, t, seed):
+    rgb, rot, trans, f = _stream_frames(b, hw, t + 1, seed)
+    return rgb[t], rot, trans, f
+
+
+def test_compiled_serving_replays_the_eager_chain(cuda):
+    """``compile_step`` on the card: the first call runs eagerly, the
+    second captures, every later one replays. Each frame's depth equals
+    ``M4Depth.step``'s bit for bit (the same kernels on the same bytes),
+    is not overwritten by later replays, and the state is the graph's own
+    and updated in place. A reset replays the same graph; a new batch
+    size captures a second. Each kernel counts its launches on the device:
+    one a level a frame, captures adding none."""
+    from m4depth_tpu_torch.parallel import compile_step
+
+    cfg = ModelConfig(**D4_NARROW)
+    b, hw = 2, 64
+    model = M4Depth(cfg, device=cuda, seed=4)
+    step = compile_step(model)
+    state = init_state(cfg, b, hw, hw, device=cuda)
+    eager = init_state(cfg, b, hw, hw, device=cuda)
+    held, ids = [], None
+    for t in range(6):
+        rgb, rot, trans, f = (torch.from_numpy(x).to(cuda)
+                              for x in _graph_frames(b, hw, t, seed=12))
+        cam = Camera(f, f.clone())
+        reset = torch.tensor([t in (0, 3), t == 0], device=cuda)
+        before = (SNCV_KERNEL.launches, DSCV_KERNEL.launches)
+        state, depth = step(state, rgb, rot, trans, cam, reset)
+        torch.cuda.synchronize()
+        assert (SNCV_KERNEL.launches - before[0],
+                DSCV_KERNEL.launches - before[1]) == (4, 4), t
+        eager, want = model.step(eager, rgb, rot, trans, cam, reset)
+        assert torch.equal(depth, want), t
+        leaves = [id(x) for s in state for x in s]
+        if t >= 2:
+            assert ids is None or leaves == ids
+            ids = leaves
+        held.append((depth, want))
+    assert step.graphs == 1 and step.pool_bytes() > 0
+    for t, (depth, want) in enumerate(held):
+        assert torch.equal(depth, want), f"frame {t} overwritten"
+    small = init_state(cfg, 1, hw, hw, device=cuda)
+    for t in range(2):
+        rgb, rot, trans, f = (torch.from_numpy(x[:1]).to(cuda)
+                              for x in _graph_frames(b, hw, t, seed=13))
+        small, _ = step(small, rgb, rot, trans, Camera(f, f.clone()),
+                        torch.tensor([t == 0], device=cuda))
+    assert step.graphs == 2
+
+
+def test_compiled_eval_steps_match_eager_on_card(cuda):
+    """The compiled windowed eval step against the eager one over three
+    windows on the card, to EVAL_METRIC_TOL; the streaming one is held by
+    ``test_evaluate_streaming_on_card_matches_cpu``, which runs it."""
+    from m4depth_tpu_torch.metrics import MetricAccumulator
+    from m4depth_tpu_torch.testing import EVAL_METRIC_TOL
+    from m4depth_tpu_torch.train.step import (
+        compile_windowed_eval_step,
+        make_windowed_eval_step,
+    )
+
+    model = M4Depth(ModelConfig(**D3), device=cuda, seed=6)
+    steps = {"compiled": compile_windowed_eval_step(model),
+             "eager": make_windowed_eval_step(model)}
+    accs = {k: MetricAccumulator.zeros(cuda) for k in steps}
+    with torch.no_grad():
+        for seed in range(3):
+            batch = train_batch_on(cuda, b=2, T=3, hw=64, seed=seed)
+            for k, step in steps.items():
+                accs[k] = step(batch, accs[k])
+    got, want = (accs[k].result() for k in ("compiled", "eager"))
+    assert float(accs["compiled"].count) == 3
+    for k in want:
+        np.testing.assert_allclose(float(got[k]), float(want[k]),
+                                   err_msg=k, **EVAL_METRIC_TOL)
+
+
+def train_batch_on(dev, b, T, hw, seed):
+    from m4depth_tpu_torch.testing import train_batch
+
+    return train_batch(b, T, hw, seed, [1.0, 0.001, -0.002, 0.001],
+                       [0.3, 0.1, 0.02], dev)
+
+
+def test_compiled_train_step_matches_eager_on_card(cuda):
+    """Three compiled train steps (eager first step, capture, replay)
+    against three eager ones from the same weights, float32, on the card:
+    the first step's gradients and weights by the card-against-CPU rule
+    (``assert_train_step_close``), each step's loss to STEP_LOSS_RTOL, the
+    kernels launched once a level a frame every step, and the copied-out
+    loss of step 1 unchanged by the later replays."""
+    from m4depth_tpu_torch.train.step import compile_train_step
+
+    cfg = ModelConfig(**D4_NARROW)
+    batch = train_batch_on(cuda, b=2, T=3, hw=64, seed=7)
+    models = {k: M4Depth(cfg, device=cuda, seed=8)
+              for k in ("compiled", "eager")}
+    steps = {"compiled": compile_train_step(
+        models["compiled"], make_optimizer(models["compiled"],
+                                           TrainConfig(learning_rate=1e-4))),
+        "eager": make_train_step(models["eager"], make_optimizer(
+            models["eager"], TrainConfig(learning_rate=1e-4)))}
+    kernels = (SNCV_KERNEL, DSCV_KERNEL, SNCV_BACKWARD_KERNEL,
+               DSCV_BACKWARD_KERNEL)
+    first = None
+    for i in range(3):
+        before = [k.launches for k in kernels]
+        got = steps["compiled"](batch)
+        torch.cuda.synchronize()
+        assert [k.launches - n for k, n in zip(kernels, before)] == [8] * 4
+        want = steps["eager"](batch)
+        torch.testing.assert_close(got["loss"], want["loss"],
+                                   rtol=STEP_LOSS_RTOL, atol=0)
+        if i == 0:
+            first = (got["loss"], got["loss"].clone())
+            assert_train_step_close(
+                {n: p.grad for n, p in models["compiled"].named_parameters()},
+                {n: p.grad for n, p in models["eager"].named_parameters()},
+                dict(models["compiled"].named_parameters()),
+                dict(models["eager"].named_parameters()), lr=1e-4)
+    assert steps["compiled"].compiled.graphs == 1
+    assert torch.equal(*first)
+
+
+def test_capture_of_a_host_sync_raises(cuda):
+    """A body that reads a device value on the host runs eagerly (the
+    first call) and fails its capture (the second): no quiet eager run on
+    the card. The device works on afterwards."""
+    from m4depth_tpu_torch.utils.graphs import Compiled
+
+    fn = Compiled(lambda x: x * x.sum().item())
+    x = torch.ones(4, device=cuda)
+    assert torch.equal(fn(x), 4 * x)
+    with pytest.raises(RuntimeError):
+        fn(x)
+    assert fn.graphs == 0
+    torch.cuda.synchronize()
+    assert float((x + 1).sum()) == 8.0
