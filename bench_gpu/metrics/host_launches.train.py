@@ -1,0 +1,7 @@
+"""host_launches.train: the host's CUDA runtime calls that put work on the
+card a step in the profile: kernel and graph launches, async copies and
+memsets."""
+
+
+def read(t):
+    return t.host_launches
