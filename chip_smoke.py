@@ -111,8 +111,9 @@ exits non-zero and prints no result line:
    --profile``, ``train_prof --steps 3``, ``io_bench`` (record store), and
    ``rehearsal`` for 2 epochs of 10 steps, then relaunched to 30 steps
    (resume and extension); each times the compiled step, and ``fps
-   --profile`` and ``train_prof`` profile the eager one (a replay has no
-   Python stack to attribute kernels by);
+   --profile`` and ``train_prof`` profile its replays, whose device time
+   they split by the stage marks captured into the graph
+   (``utils.tracing``);
 20. the compiled programs (``utils.graphs``, the counterparts of the JAX
    package's jitted, state-donating steps; CUDA graphs): ``compile_step``
    of M4Depth and V1 at d6 384x384 b=1 bf16 over 50 distinct frames with
@@ -2381,11 +2382,14 @@ def phase_tools(dev) -> dict:
     check(bd["n_events"] > 0, "fps --profile recorded device events")
     check(abs(sum(bd["groups"].values()) - bd["busy_us"])
           <= 1e-6 * bd["busy_us"], "the breakdown sums to the busy time")
+    check(bd["units"]["complete"] > 0, "fps --profile: complete replays "
+          f"by their stage marks {bd['units']}")
     log(f"  [{card}] fps --n {TOOL_FPS_FRAMES}: {r['fps']:.2f} frames/s, "
-        f"{r['ms_per_frame']:.3f} ms/frame; --profile: device busy "
+        f"{r['ms_per_frame']:.3f} ms/frame, host in the compiled call "
+        f"{r['dispatch']['ns']:.1f} us/frame; --profile: device busy "
         f"{bd['busy_us']:.1f} us/frame: " + ", ".join(
             f"{c} {us:.1f}" for c, us in sorted(
-                r["components_us"].items(), key=lambda kv: -kv[1])))
+                bd["groups"].items(), key=lambda kv: -kv[1])))
 
     r = tool("train_prof", lambda: train_prof.run(train_prof.parse_args(
         ["--steps", str(TOOL_TRAIN_STEPS)])))
@@ -2398,11 +2402,14 @@ def phase_tools(dev) -> dict:
     bd = r["breakdown"]
     check(bd["n_events"] > 0 and abs(sum(bd["groups"].values())
                                      - bd["busy_us"]) <= 1e-6 * bd["busy_us"],
-          "train_prof's groups sum to the busy time")
+          "train_prof's stages sum to the busy time")
+    check(bd["units"]["complete"] > 0, "train_prof: complete replays by "
+          f"their stage marks {bd['units']}")
     log(f"  [{card}] train_prof --steps {TOOL_TRAIN_STEPS}: "
         f"{r['ms_per_step']:.3f} ms/step (first step {r['first_step_s']:.2f}"
-        f" s), device busy {bd['busy_us']:.1f} us/step: " + ", ".join(
-            f"{d} {c} {us:.1f}" for (d, c), us in sorted(
+        f" s, host in the compiled call {r['dispatch']['ns']:.1f} us/step),"
+        f" device busy {bd['busy_us']:.1f} us/step: " + ", ".join(
+            f"{c} {us:.1f}" for c, us in sorted(
                 bd["groups"].items(), key=lambda kv: -kv[1])))
 
     r = tool("io_bench", lambda: io_bench.run(io_bench.parse_args(

@@ -27,6 +27,7 @@ from m4depth_tpu_torch.ops import (
     parallax_sweeping_cv_fused,
     spatial_cost_volume_fused,
 )
+from m4depth_tpu_torch.utils import tracing
 
 INIT_DEPTH = 1000.0
 
@@ -207,7 +208,9 @@ class DecoderLevel(nn.Module):
             inputs.append(log_safe(para_reproj * self.lvl_mul))
         f_input = torch.cat([x.to(cdt) for x in inputs], dim=-1)
 
+        tracing.mark(f"refiner{self.level}", f_input.device)
         out = self.refiner(f_input).float()
+        tracing.mark(f"glue{self.level}", f_input.device)
         parallax = torch.exp(torch.clamp(out[..., :1], -7.0, 7.0)) / self.lvl_mul
         depth = parallax_to_depth(parallax, rot, trans, camera)
 

@@ -23,6 +23,7 @@ from m4depth_tpu_torch.models.decoder import (
     LevelState,
 )
 from m4depth_tpu_torch.models.encoder import Conv3x3, Encoder
+from m4depth_tpu_torch.utils import tracing
 
 ModelState = Tuple[LevelState, ...]
 Pyramid = List[LevelEstimate]  # finest level first
@@ -90,9 +91,13 @@ class M4Depth(nn.Module):
         """One frame through the encoder and the decoder pyramid (deepest
         to finest). ``new_traj`` [b] resets elements of the batch (None:
         none resets); ``first=True`` marks the frame as the start of every
-        sequence of the batch, and ``state`` is then not read."""
+        sequence of the batch, and ``state`` is then not read. The stages
+        ``encoder`` and ``glue`` are marked here, each level's refiner in
+        ``DecoderLevel`` (``utils.tracing``)."""
         num_levels = self.cfg.num_levels
+        tracing.mark("encoder", rgb.device)
         f_pyr = self.encoder(rgb)
+        tracing.mark("glue", rgb.device)
         new_states: List[Optional[LevelState]] = [None] * num_levels
         ests: List[Optional[LevelEstimate]] = [None] * num_levels
         deeper: Optional[LevelEstimate] = None
@@ -162,4 +167,5 @@ class M4Depth(nn.Module):
         passes ``new_traj=True`` on each trajectory's first frame."""
         state, pyr = self.forward_frame(state, rgb, rot, trans, camera,
                                         new_traj)
+        tracing.mark("output", rgb.device)
         return state, self.final_depth([pyr], rgb.shape[1:3])

@@ -45,6 +45,7 @@ from m4depth_tpu_torch.models.decoder import LevelState
 from m4depth_tpu_torch.models.encoder import Conv3x3, leaky_relu
 from m4depth_tpu_torch.models.m4depth import Device, ModelState
 from m4depth_tpu_torch.ops import dense_image_warp, spatial_cost_volume_fused
+from m4depth_tpu_torch.utils import tracing
 
 V1_REFINER_CHANNELS = (128, 128, 96, 64, 32, 16, 1)
 V1Pyramid = List[torch.Tensor]  # depth [b, h_l, w_l, 1], finest level first
@@ -83,13 +84,15 @@ def _log_safe(x: torch.Tensor) -> torch.Tensor:
 
 
 class DecoderLevelV1(nn.Module):
-    """Depth-recurrent decoder level for ``channels`` features and
-    rotations of ``rot_dim`` values (3: small angle, 4: quaternion), which
-    the refiner reads as input maps."""
+    """Depth-recurrent decoder level (1-indexed ``level``; 1 = finest) for
+    ``channels`` features and rotations of ``rot_dim`` values (3: small
+    angle, 4: quaternion), which the refiner reads as input maps."""
 
-    def __init__(self, cfg: ModelConfig, channels: int, rot_dim: int):
+    def __init__(self, cfg: ModelConfig, channels: int, rot_dim: int,
+                 level: int = 1):
         super().__init__()
         self.cfg = cfg
+        self.level = level
         side = 2 * cfg.search_range + 1
         # features, cost volume, two log depths, rotation, translation and
         # the pixel coordinates
@@ -156,8 +159,10 @@ class DecoderLevelV1(nn.Module):
             trans.reshape(b, 1, 1, 3).expand(b, h, w, 3).to(dt),
             coords[..., :2].expand(b, h, w, 2).to(dt),
         ], dim=-1)
+        tracing.mark(f"refiner{self.level}", x.device)
         for conv in self.convs:
             x = leaky_relu(conv(x), cfg.leaky_slope)
+        tracing.mark(f"glue{self.level}", x.device)
         x = inverse_leaky_relu(x.float(), cfg.leaky_slope)
         depth = torch.exp(torch.clamp(x, -7.0, 7.0)) * 10.0
         return depth, depth
@@ -181,7 +186,8 @@ class M4DepthV1(nn.Module):
         self.single_frame = single_frame
         self.encoder = EncoderV1(cfg)
         self.levels = nn.ModuleList(
-            DecoderLevelV1(cfg, c, rot_dim) for c in cfg.channels)
+            DecoderLevelV1(cfg, c, rot_dim, i + 1)
+            for i, c in enumerate(cfg.channels))
         generator = torch.Generator().manual_seed(seed)
         for m in self.modules():
             if isinstance(m, Conv3x3):
@@ -200,9 +206,12 @@ class M4DepthV1(nn.Module):
     ) -> Tuple[ModelState, V1Pyramid]:
         """One frame through the encoder and the levels, deepest first.
         ``first=True`` (or ``single_frame``) runs without temporal memory
-        and does not read ``state``."""
+        and does not read ``state``. The stages are marked as
+        ``M4Depth.forward_frame`` marks them."""
         num_levels = self.cfg.num_levels
+        tracing.mark("encoder", rgb.device)
         f_pyr = self.encoder(rgb)
+        tracing.mark("glue", rgb.device)
         new_states: List[Optional[LevelState]] = [None] * num_levels
         ests: List[Optional[torch.Tensor]] = [None] * num_levels
         deeper = None
@@ -243,6 +252,7 @@ class M4DepthV1(nn.Module):
         one frame in, full-resolution depth [b, h, w, 1] out."""
         state, pyr = self.forward_frame(state, rgb, rot, trans, camera,
                                         new_traj)
+        tracing.mark("output", rgb.device)
         return state, self.final_depth([pyr], rgb.shape[1:3])
 
     def loss(self, gt_depth_seq: torch.Tensor, preds: Sequence[V1Pyramid],

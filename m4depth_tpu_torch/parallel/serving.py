@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from m4depth_tpu_torch.geometry import Camera
+from m4depth_tpu_torch.utils import tracing
 from m4depth_tpu_torch.utils.graphs import Compiled, assign_
 
 # names of the profiler events that a collective records: the c10d ops
@@ -122,17 +123,32 @@ def sharded_stream(model, devices: Sequence[torch.device]):
     The replicas are stepped one after another from this thread: on a
     model bound by the host's launches, splitting over devices is slower
     than one device's batch of N.
+
+    A call opens the host span ``serve.step`` and, around each replica's
+    call, ``serve.shard``; a call in which every replica replayed its
+    graph counts in the ``serve.step`` counter (``utils.tracing``).
     """
     devices = [torch.device(d) for d in devices]
     steps = [compile_step(m) for m in replicate_params(model, devices)]
 
     def step(state: List, rgb, rot, trans, camera: Camera, new_traj):
+        t0 = tracing.clock()
+        with tracing.span("serve.step"):
+            out = _step(state, rgb, rot, trans, camera, new_traj)
+        if all(st.replayed for st in steps):
+            tracing.count("serve.step", t0)
+        return out
+
+    def _step(state: List, rgb, rot, trans, camera: Camera, new_traj):
         if len(state) != len(devices):
             raise ValueError(f"{len(state)} state shards for "
                              f"{len(devices)} devices")
         shards = shard_stream_inputs((rgb, rot, trans, camera, new_traj),
                                      devices)
-        out = [st(s, *x) for st, s, x in zip(steps, state, shards)]
+        out = []
+        for st, s, x in zip(steps, state, shards):
+            with tracing.span("serve.shard"):
+                out.append(st(s, *x))
         depths = [d for _, d in out]
         if len(depths) == 1:
             return [out[0][0]], depths[0]

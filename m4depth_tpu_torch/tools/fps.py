@@ -1,6 +1,5 @@
 """Streaming frames per second of the compiled ``M4Depth.step``, with an
-optional device-time breakdown by component. Counterpart of
-``tools/fps.py``.
+optional device-time breakdown by stage. Counterpart of ``tools/fps.py``.
 
 The d``--levels`` model (bfloat16 convs, ``--cv_dtype`` cost volumes,
 weights from seed 0) streams one frame after another at ``--size`` (or
@@ -9,15 +8,19 @@ weights from seed 0) streams one frame after another at ``--size`` (or
 through ``parallel.serving.compile_step`` (one CUDA graph replayed a frame
 on the card, as the JAX tool times its jitted step). After 10 frames of
 warm-up, the best of 3 runs of ``--n`` frames, each ending in a
-synchronise, gives ms/frame and frames/s.
+synchronise, gives ms/frame and frames/s; the host's time in the
+compiled call a frame comes from ``utils.tracing``'s ``compiled.replays``
+counter over those runs (prepare, launch, finish), and the eager first
+call's and the capture's from ``compiled.warmups`` and
+``compiled.captures``.
 
-``--profile`` then records ``PROFILED_FRAMES`` frames of the eager
-``M4Depth.step`` (a replay has no Python stack to attribute its kernels
-by) with ``utils.profiling.device_trace`` (with the Python stack) and
-splits their device time by component: the cost-volume kernels by name
-(``sncv``, ``dscv``), the other kernels by the module they were launched
-under (``encoder``, ``refiner``), else ``other``; and lists the kernels
-that take most, with the aten op that launched each. On the card:
+``--profile`` then records ``PROFILED_FRAMES`` replayed frames with
+``utils.profiling.device_trace`` and splits their device time by the
+stage marks captured into the graph (``utils.tracing``): the encoder, each
+decoder level's refiner and glue, the output; then each stage's span from
+its mark to the next over the complete replays, the graph's span and the
+gaps inside it; and the kernels that take most, with their stage. On the
+card:
 
   python -m m4depth_tpu_torch.tools.fps --n 200 --profile
 
@@ -31,6 +34,7 @@ import argparse
 import sys
 import tempfile
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -40,6 +44,7 @@ from m4depth_tpu_torch.config import DTYPES, ModelConfig
 from m4depth_tpu_torch.geometry import Camera
 from m4depth_tpu_torch.models import M4Depth, init_state
 from m4depth_tpu_torch.parallel.serving import compile_step
+from m4depth_tpu_torch.utils import tracing
 from m4depth_tpu_torch.utils.profiling import device_breakdown, device_trace
 
 WARMUP_FRAMES = 10
@@ -72,9 +77,8 @@ def parse_args(argv=None):
 
 
 def make_stream(a):
-    """(run(n, new_traj, eager) -> last depth, device): ``n`` streamed
-    frames of the compiled step (``eager``: of ``M4Depth.step``), the
-    recurrent state carried across calls."""
+    """(run(n, new_traj) -> last depth, device): ``n`` streamed frames of
+    the compiled step, the recurrent state carried across calls."""
     dev = resolve_device(a.device)
     cfg = ModelConfig(num_levels=a.levels, compute_dtype="bfloat16",
                       cv_dtype=a.cv_dtype)
@@ -94,12 +98,11 @@ def make_stream(a):
     compiled = compile_step(model)
 
     @torch.no_grad()
-    def run(n: int, new_traj: bool = False, eager: bool = False):
-        step = model.step if eager else compiled
+    def run(n: int, new_traj: bool = False):
         for i in range(n):
             nt = start if new_traj and i == 0 else go
-            holder["state"], depth = step(holder["state"], rgb, rot, trans,
-                                          cam, nt)
+            holder["state"], depth = compiled(holder["state"], rgb, rot,
+                                              trans, cam, nt)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         return depth
@@ -107,52 +110,99 @@ def make_stream(a):
     return run, dev
 
 
-def print_breakdown(r: dict, groups: dict, unit: str) -> None:
-    """A ``device_breakdown`` result ``r``: its busy time, ``groups`` (us
-    by name) and the top kernels."""
+def print_breakdown(r: dict, unit: str) -> None:
+    """A ``device_breakdown`` result ``r``: its busy time by stage (the
+    decoder's refiner and glue stages as a table of levels), the marked
+    units' spans, and the top kernels."""
     if not r["n_events"]:
         print("device time: not measured (the trace holds no device events: "
               "no CUDA device in this run)")
         return
     busy = r["busy_us"]
     print(f"device busy {busy:.1f} us/{unit} ({r['n_events']} device "
-          "events in the trace)")
-    for name, us in sorted(groups.items(), key=lambda kv: -kv[1]):
-        print(f"  {us:10.1f} us {100 * us / busy:5.1f}%  {name}")
-    print("  -- top kernels (launching aten op) --")
-    for (name, op), us in sorted(r["ops"].items(),
-                                 key=lambda kv: -kv[1])[:TOP_OPS]:
-        print(f"  {us:10.1f} us {100 * us / busy:5.1f}%  {name} ({op or '-'})")
+          "events in the trace), by stage:")
+    levels = {}
+    for stage, us in r["groups"].items():
+        level, kind = tracing.stage_of_level(stage)
+        if level is not None:
+            levels.setdefault(level, {})[kind] = us
+    for stage, us in sorted(r["groups"].items(), key=lambda kv: -kv[1]):
+        if tracing.stage_of_level(stage)[0] is None:
+            print(f"  {us:10.1f} us {100 * us / busy:5.1f}%  {stage}")
+    if levels:
+        print("  level    refiner us      glue us   (glue<k>: level k after "
+              "its refiner, level k-1 up to its own)")
+        for level in sorted(levels, reverse=True):
+            ref, glue = (levels[level].get(k, 0.0)
+                         for k in ("refiner", "glue"))
+            print(f"  {level:5d} {ref:12.1f} {glue:12.1f}")
+    u = r["units"]
+    if u.get("complete"):
+        print(f"  marked units: {u['complete']} complete of {u['seen']}; "
+              f"span {u['span_us']:.1f} us, busy {u['busy_us']:.1f} us, "
+              f"gaps inside {u['gap_pct']:.2f}%")
+    else:
+        print(f"  marked units: none complete of {u['seen']}")
+    print("  -- top kernels (stage) --")
+    for (name, stage), us in sorted(r["ops"].items(),
+                                    key=lambda kv: -kv[1])[:TOP_OPS]:
+        print(f"  {us:10.1f} us {100 * us / busy:5.1f}%  {name} ({stage})")
 
 
-def components(r: dict) -> dict:
-    """The groups summed over direction: {component: us}."""
-    out = {}
-    for (_, comp), us in r["groups"].items():
-        out[comp] = out.get(comp, 0.0) + us
+def print_dispatch(d: dict, unit: str) -> None:
+    """The host's time in the compiled call a ``unit``, and the warm-up's
+    and the capture's (``dispatch``)."""
+    if d.get("ns") is None:
+        print("host time in the compiled call: no replay timed")
+        return
+    print(f"host time in the compiled call: {d['ns']:.1f} us/{unit} "
+          f"(prepare {d['prepare_ns']:.1f}, launch {d['launch_ns']:.1f}, "
+          f"finish {d['finish_ns']:.1f}); its eager first call "
+          f"{1e-3 * d['warm_up']:.1f} ms, its capture {1e-3 * d['capture']:.1f}"
+          " ms")
+    if d.get("entry") is not None:
+        print(f"host time in the whole step call: {d['entry']:.1f} us/{unit}")
+
+
+def dispatch(start: dict, before: dict, after: dict,
+             entry: Optional[str] = None) -> dict:
+    """From three ``tracing.counters()`` snapshots (before the first
+    call, before the timed calls, after them): the ``compiled.replays``
+    counter's mean host time a timed replay, by part, the mean
+    ``compiled.warmups`` and ``compiled.captures`` call since the start,
+    and with ``entry`` that counter's mean timed call (us; None where no
+    such call ran)."""
+    out = {key: tracing.mean_us(after, "compiled.replays", before, key)
+           for key in ("ns", "prepare_ns", "launch_ns", "finish_ns")}
+    out.update(warm_up=tracing.mean_us(after, "compiled.warmups", start),
+               capture=tracing.mean_us(after, "compiled.captures", start),
+               entry=entry and tracing.mean_us(after, entry, before))
     return out
 
 
 def run(a) -> dict:
-    """ms/frame and frames/s, and with ``--profile`` the breakdown (us a
-    frame by component, and ``device_breakdown``'s result)."""
+    """ms/frame and frames/s, the host's time in the compiled call a frame
+    (``dispatch``), and with ``--profile`` ``device_breakdown``'s result
+    over replayed frames."""
     stream, dev = make_stream(a)
+    start = tracing.counters()
     depth = stream(1, new_traj=True)
     stream(WARMUP_FRAMES)
     best = float("inf")
+    before = tracing.counters()
     for _ in range(REPEATS):
         t0 = time.perf_counter()
         depth = stream(a.n)
         best = min(best, time.perf_counter() - t0)
     out = dict(ms_per_frame=1e3 * best / a.n, fps=a.n * a.batch / best,
-               finite=bool(torch.isfinite(depth).all()), device=str(dev))
+               finite=bool(torch.isfinite(depth).all()), device=str(dev),
+               dispatch=dispatch(start, before, tracing.counters()))
     if a.profile:
         log_dir = a.log_dir or tempfile.mkdtemp(prefix="m4depth_fps_")
-        with device_trace(log_dir, with_stack=True) as trace:
-            stream(PROFILED_FRAMES, eager=True)
+        with device_trace(log_dir) as trace:
+            stream(PROFILED_FRAMES)
         out["trace"] = trace.path
         out["breakdown"] = device_breakdown(trace.path, PROFILED_FRAMES)
-        out["components_us"] = components(out["breakdown"])
     return out
 
 
@@ -164,10 +214,10 @@ def main(argv=None) -> int:
           f"batch={a.batch} size={h}x{w} levels={a.levels} "
           f"cv_dtype={a.cv_dtype} device={r['device']} (best of {REPEATS} "
           f"runs of {a.n} frames)", flush=True)
+    print_dispatch(r["dispatch"], "frame")
     if a.profile:
-        print(f"trace: {r['trace']} (the eager step: a CUDA graph's replay "
-              "has no Python stack to attribute kernels by)")
-        print_breakdown(r["breakdown"], r["components_us"], "frame")
+        print(f"trace: {r['trace']} ({PROFILED_FRAMES} replayed frames)")
+        print_breakdown(r["breakdown"], "frame")
     return 0 if r["finite"] else 1
 
 

@@ -1,23 +1,22 @@
-"""Training-step profiler with non-overlapping attribution. Counterpart of
-``tools/train_prof.py``.
+"""Training-step profiler with non-overlapping attribution by stage.
+Counterpart of ``tools/train_prof.py``.
 
 Times ``compile_train_step`` (one CUDA graph replayed a step on the card,
 as the JAX tool times its jitted step; d``--levels`` at ``--size``, batch
 ``--batch``, ``--seq`` frames, bfloat16 convs, ``--cv_dtype`` cost
 volumes, Adam at 1e-4, weights from seed 0, a seeded batch; ``--remat``
 with ``--remat_policy``): the first step, then the best of 3 runs of
-``--steps`` steps. Then it records ``PROFILED_STEPS`` steps of the eager
-``make_train_step`` of the same model and weights (a replay has no Python
-stack to attribute its kernels by) with ``utils.profiling.device_trace``
-(with the Python stack) and splits their
-device time without overlap: each device time point goes to the innermost
-device event open at it, and each event to (direction, component). A
-kernel launched inside an autograd backward node
-(``autograd::engine::evaluate_function``) is ``bwd``, and its component is
-that of the forward op with the node's sequence number; components are the
-cost-volume kernels by name (``sncv``, ``dscv``) and the others by the
-module they were launched under (``encoder``, ``refiner``), else
-``other``. The groups sum to the profiled device-busy time. On the card:
+``--steps`` steps, and the host's time in the compiled call a step, in
+the whole ``train_step`` call (``train.step``), its eager first call and
+its capture (``utils.tracing``'s counters). Then it records
+``PROFILED_STEPS`` replayed steps with ``utils.profiling.device_trace``
+and splits their device time without overlap by the stage marks captured
+into the graph (``utils.tracing``): each device time point goes to the
+innermost device event open at it, and each event to the stage of the
+latest mark before it: the window's frames (encoder, each level's refiner
+and glue), ``loss``, ``backward`` (the whole backward), ``optimizer``
+(the clip and Adam) and ``metrics``. The stages sum to the profiled
+device-busy time. On the card:
 
   python -m m4depth_tpu_torch.tools.train_prof --steps 10
 
@@ -44,12 +43,13 @@ from m4depth_tpu_torch.config import (
 )
 from m4depth_tpu_torch.models import M4Depth
 from m4depth_tpu_torch.testing import train_batch
-from m4depth_tpu_torch.tools.fps import print_breakdown
-from m4depth_tpu_torch.train import (
-    compile_train_step,
-    make_optimizer,
-    make_train_step,
+from m4depth_tpu_torch.tools.fps import (
+    dispatch,
+    print_breakdown,
+    print_dispatch,
 )
+from m4depth_tpu_torch.train import compile_train_step, make_optimizer
+from m4depth_tpu_torch.utils import tracing
 from m4depth_tpu_torch.utils.profiling import device_breakdown, device_trace
 
 WARMUP_STEPS = 3
@@ -80,20 +80,22 @@ def parse_args(argv=None):
 
 
 def run(a) -> dict:
-    """The first step's and the best ms/step, the last loss, and unless
+    """The first step's and the best ms/step, the last loss, the host's
+    time in the compiled call a step (``dispatch``), and unless
     ``--no_profile`` the breakdown (``device_breakdown``'s result, per
-    step)."""
+    replayed step)."""
     dev = resolve_device(a.device)
     cfg = ModelConfig(num_levels=a.levels, compute_dtype="bfloat16",
                       cv_dtype=a.cv_dtype, remat=a.remat,
                       remat_policy=a.remat_policy)
     model = M4Depth(cfg, device=dev, seed=0)
     step = compile_train_step(model, make_optimizer(model, TrainConfig()))
+    start = tracing.counters()
     batch = train_batch(a.batch, a.seq, a.size, 0, ROT, TRANS, dev)
 
-    def steps(n: int, fn=step) -> float:
+    def steps(n: int) -> float:
         for _ in range(n):
-            scalars = fn(batch)
+            scalars = step(batch)
         return float(scalars["loss"])          # waits for the device
 
     t0 = time.perf_counter()
@@ -101,17 +103,18 @@ def run(a) -> dict:
     first_s = time.perf_counter() - t0
     steps(WARMUP_STEPS)
     best = float("inf")
+    before = tracing.counters()
     for _ in range(REPEATS):
         t0 = time.perf_counter()
         loss = steps(a.steps)
         best = min(best, (time.perf_counter() - t0) / a.steps)
     out = dict(first_step_s=first_s, ms_per_step=1e3 * best, loss=loss,
-               device=str(dev))
+               device=str(dev), dispatch=dispatch(
+                   start, before, tracing.counters(), "train.step"))
     if not a.no_profile:
         log_dir = a.log_dir or tempfile.mkdtemp(prefix="m4depth_train_prof_")
-        eager = make_train_step(model, make_optimizer(model, TrainConfig()))
-        with device_trace(log_dir, with_stack=True) as trace:
-            steps(PROFILED_STEPS, eager)
+        with device_trace(log_dir) as trace:
+            steps(PROFILED_STEPS)
         out["trace"] = trace.path
         out["breakdown"] = device_breakdown(trace.path, PROFILED_STEPS)
     return out
@@ -127,17 +130,13 @@ def main(argv=None) -> int:
           f"{':' + a.remat_policy if a.remat else ''} device={r['device']}; "
           f"best of {REPEATS} runs of {a.steps}); loss {r['loss']:.5g}",
           flush=True)
+    print_dispatch(r["dispatch"], "step")
     if "breakdown" in r:
         bd = r["breakdown"]
-        print(f"trace: {r['trace']} (the eager step: a CUDA graph's replay "
-              "has no Python stack to attribute kernels by)")
-        print_breakdown(bd, {f"{d:4s} {c}": us
-                             for (d, c), us in bd["groups"].items()}, "step")
+        print(f"trace: {r['trace']} ({PROFILED_STEPS} replayed steps)")
+        print_breakdown(bd, "step")
         if bd["n_events"]:
-            fwd = sum(us for (d, _), us in bd["groups"].items()
-                      if d == "fwd")
-            print(f"  fwd {fwd:.1f} us, bwd {bd['busy_us'] - fwd:.1f} us; "
-                  f"the groups sum to {sum(bd['groups'].values()):.1f} of "
+            print(f"  the stages sum to {sum(bd['groups'].values()):.1f} of "
                   f"{bd['busy_us']:.1f} us busy")
     return 0 if math.isfinite(r["loss"]) else 1
 

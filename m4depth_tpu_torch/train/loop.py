@@ -47,6 +47,7 @@ from m4depth_tpu_torch.train.step import (
     data_parallel,
     make_train_step,
 )
+from m4depth_tpu_torch.utils import tracing
 from m4depth_tpu_torch.utils.logging import MetricLogger
 
 
@@ -128,6 +129,10 @@ def fit(
     batch, and ``len(dataset)`` must be the same on every rank. Without a
     mesh the step is ``compile_train_step``'s.
 
+    Each batch is fetched in the host span ``train.loader_wait``
+    (``utils.tracing``), and each log line adds ``loader_wait_ms``, the
+    mean wait for a batch over the steps since the last one.
+
     Returns the final ``TrainState``. Raises ``NaNStop`` on a non-finite
     loss without saving the poisoned state (on every rank at the same
     step: the tripwire reads the loss averaged over the ranks), and
@@ -207,12 +212,21 @@ def fit(
             if not np.isfinite(lf):
                 raise NaNStop(f"non-finite loss at step {s_i}: {lf}")
 
+    wait_s, waits = 0.0, 0
+
     try:
         for epoch in range(start_epoch, n_epochs):
             t_epoch = t_last = time.perf_counter()
-            batches = (epoch0 if epoch == 0 and start_epoch == 0
-                       else dataset.batches(epoch))
-            for batch in batches:
+            batches = iter(epoch0 if epoch == 0 and start_epoch == 0
+                           else dataset.batches(epoch))
+            while True:
+                t_fetch = time.perf_counter()
+                with tracing.span("train.loader_wait"):
+                    batch = next(batches, None)
+                if batch is None:
+                    break
+                wait_s += time.perf_counter() - t_fetch
+                waits += 1
                 scalars = step(to_device(batch, device))
                 inflight.append((step_idx, scalars["loss"]))
                 drain_nan_checks(nan_lag)
@@ -224,6 +238,8 @@ def fit(
                     images = scalars.pop("images", None)
                     vals = {k: float(v) for k, v in scalars.items()}
                     vals.update(meter.report())
+                    vals["loader_wait_ms"] = 1e3 * wait_s / waits
+                    wait_s, waits = 0.0, 0
                     logger.log_scalars(step_idx, vals, prefix="train/")
                     print(f"epoch {epoch} step {step_idx}: " +
                           " ".join(f"{k}={v:.4g}" for k, v in vals.items()),

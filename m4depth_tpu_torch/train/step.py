@@ -33,6 +33,7 @@ from m4depth_tpu_torch.metrics import (
 )
 from m4depth_tpu_torch.models.decoder import LevelEstimate
 from m4depth_tpu_torch.models.m4depth import M4Depth, ModelState
+from m4depth_tpu_torch.utils import tracing
 
 Batch = Dict[str, torch.Tensor]
 
@@ -286,7 +287,9 @@ def _train_body(model, optimizer: Optimizer, with_images: bool,
     the images. Returns ``{"scalars": [loss, RMSE_log, grad_norm]}`` as one
     stacked tensor, and ``"images"`` with ``with_images``. Through the
     ``data_parallel`` wrapper the loss is the global batch's and ``loss``
-    and ``RMSE_log`` are the means over the ranks."""
+    and ``RMSE_log`` are the means over the ranks. After the model's own
+    stage marks it marks ``loss``, ``backward``, ``optimizer`` and
+    ``metrics`` (``utils.tracing``)."""
     from torch.nn.parallel import DistributedDataParallel
 
     ddp = isinstance(model, DistributedDataParallel)
@@ -295,11 +298,16 @@ def _train_body(model, optimizer: Optimizer, with_images: bool,
 
     def body(batch: Batch) -> Dict[str, Any]:
         camera = batch_camera(batch)
+        device = batch["depth"].device
         preds = model(batch["rgb"], batch["rot"], batch["trans"], camera)
+        tracing.mark("loss", device)
         loss = core.loss(batch["depth"], preds, group=group)
         optimizer.adam.zero_grad(set_to_none=True)
+        tracing.mark("backward", device)
         loss.backward()
+        tracing.mark("optimizer", device)
         grad_norm = apply_gradients()
+        tracing.mark("metrics", device)
         with torch.no_grad():
             gt = batch["depth"][:, -1]
             rmse = _rmse_log(gt, core.final_depth(preds, gt.shape[1:3]))
@@ -316,16 +324,23 @@ def _train_body(model, optimizer: Optimizer, with_images: bool,
 
 
 def _train_step(run: Callable[[Batch], Dict[str, Any]], optimizer: Optimizer,
-                augment_fn, augment_seed: int
+                augment_fn, augment_seed: int, compiled=None
                 ) -> Callable[[Batch], Dict[str, torch.Tensor]]:
     """``train_step(batch)``: ``augment_fn`` at the optimiser's count,
     then ``run`` (a ``_train_body``, or its compiled form), its stacked
-    scalars returned by name."""
+    scalars returned by name; in the host spans ``train.step`` and
+    ``train.augment``. A call that replayed ``compiled`` counts in the
+    ``train.step`` counter (``utils.tracing``)."""
 
     def train_step(batch: Batch) -> Dict[str, torch.Tensor]:
-        if augment_fn is not None:
-            batch = augment_fn(batch, augment_seed, optimizer.count)
-        out = run(batch)
+        t0 = tracing.clock()
+        with tracing.span("train.step"):
+            if augment_fn is not None:
+                with tracing.span("train.augment"):
+                    batch = augment_fn(batch, augment_seed, optimizer.count)
+            out = run(batch)
+        if compiled is not None and compiled.replayed:
+            tracing.count("train.step", t0)
         loss, rmse, grad_norm = out["scalars"]
         result = {"loss": loss, "RMSE_log": rmse, "grad_norm": grad_norm}
         if "images" in out:
@@ -344,6 +359,7 @@ def make_windowed_eval_step(model: M4Depth):
         preds = model(batch["rgb"], batch["rot"], batch["trans"],
                       batch_camera(batch))
         gt = batch["depth"][:, -1]
+        tracing.mark("metrics", gt.device)
         est = model.final_depth(preds, gt.shape[1:3])
         return acc.update(compute_metrics(*clip_for_eval(gt, est)))
 
@@ -364,6 +380,7 @@ def make_streaming_eval_step(model: M4Depth):
         model_state, est = model.step(
             model_state, frame["rgb"], frame["rot"], frame["trans"],
             batch_camera(frame), new_traj)
+        tracing.mark("metrics", est.device)
         weight = 1.0 - torch.max(new_traj.float())
         acc = acc.update(compute_metrics(*clip_for_eval(frame["depth"], est)),
                          weight=weight)
@@ -472,7 +489,8 @@ def compile_train_step(
         optimizer.count += 1
         return out
 
-    train_step = _train_step(run, optimizer, augment_fn, augment_seed)
+    train_step = _train_step(run, optimizer, augment_fn, augment_seed,
+                             compiled)
     train_step.compiled = compiled
     return train_step
 

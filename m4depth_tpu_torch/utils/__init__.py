@@ -1,1 +1,1 @@
-"""Logging and profiling helpers of the harness."""
+"""Logging, profiling and tracing helpers of the harness."""

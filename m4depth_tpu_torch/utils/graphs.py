@@ -28,19 +28,30 @@ nothing the caller holds is overwritten by a later one.
 
 Kernel launches (``ops._build.CudaKernel.launches``) count device runs: a
 capture records its launches and adds none, and each replay adds them.
-The profiler's per-module attribution (``utils.profiling.
-device_breakdown``) reads the Python stack at each launch, which a replay
-has not: component breakdowns stay on the eager functions.
+
+Tracing (``utils.tracing``): a replay has no Python stack and makes no
+host call per node, so the model's stages are marked by kernels captured
+into the graph, and every captured function ends with an ``end`` mark, so
+that a replay's marks bracket the whole graph.
+``utils.profiling.device_breakdown`` attributes a
+profile's device time by those marks, replays included. Each call opens
+the host spans ``compiled.signature``, then ``compiled.copy_in``,
+``compiled.launch`` and ``compiled.copy_out`` for a replay, or
+``compiled.warm_up`` or ``compiled.capture``, and adds its host time to
+the counters ``compiled.replays`` (prepare, launch, finish),
+``compiled.warmups`` or ``compiled.captures``; ``replayed`` says whether
+the last call replayed a graph.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, List
+from typing import Any, Callable, Dict, List, Optional
 
 import torch
 from torch.utils._pytree import tree_flatten, tree_unflatten
 
 from m4depth_tpu_torch.ops import _build
+from m4depth_tpu_torch.utils import tracing
 
 
 def assign_(dst: Any, src: Any) -> Any:
@@ -94,14 +105,24 @@ class _Graph:
         self.out = [(o, isinstance(o, torch.Tensor) and id(o) not in ids)
                     for o in out]
 
-    def replay(self, leaves: List[Any]):
-        for s, x in zip(self.static, leaves):
-            if isinstance(s, torch.Tensor) and x is not s:
-                s.copy_(x)
-        self.graph.replay()
-        _build.add_launches(self.launches)
-        return tree_unflatten([o.clone() if copy else o
-                               for o, copy in self.out], self.out_spec)
+    def replay(self, leaves: List[Any], t0: Optional[int] = None):
+        """Copy ``leaves`` in, replay, copy the outputs out; with ``t0``
+        (the call's start on ``tracing.clock``) count the replay."""
+        with tracing.span("compiled.copy_in"):
+            for s, x in zip(self.static, leaves):
+                if isinstance(s, torch.Tensor) and x is not s:
+                    s.copy_(x)
+        t1 = tracing.clock()
+        with tracing.span("compiled.launch"):
+            self.graph.replay()
+        t2 = tracing.clock()
+        with tracing.span("compiled.copy_out"):
+            _build.add_launches(self.launches)
+            out = tree_unflatten([o.clone() if copy else o
+                                  for o, copy in self.out], self.out_spec)
+        if t0 is not None:
+            tracing.count_replay(t0, t1, t2)
+        return out
 
 
 class Compiled:
@@ -118,6 +139,7 @@ class Compiled:
         self._warm = set()
         self._graphs: Dict[Any, _Graph] = {}
         self._streams: Dict[torch.device, torch.cuda.Stream] = {}
+        self.replayed = False
 
     @property
     def graphs(self) -> int:
@@ -139,25 +161,44 @@ class Compiled:
         return self._streams[device]
 
     def __call__(self, *args):
-        leaves, spec = tree_flatten(args)
-        sig, device = _signature(leaves)
+        t0 = tracing.clock()
+        self.replayed = False
+        with tracing.span("compiled.signature"):
+            leaves, spec = tree_flatten(args)
+            sig, device = _signature(leaves)
+            if device is not None:
+                key = (str(spec), sig)
+                graph = self._graphs.get(key)
         if device is None:
             return self.fn(*args)
-        key = (str(spec), sig)
-        graph = self._graphs.get(key)
-        if graph is None:
-            if key not in self._warm:
-                self._warm.add(key)
-                return self._warm_up(args, device)
+        if graph is not None:
+            out = graph.replay(leaves, t0)
+            self.replayed = True
+            return out
+        if key not in self._warm:
+            self._warm.add(key)
+            with tracing.span("compiled.warm_up"):
+                out = self._warm_up(args, device)
+            tracing.count("compiled.warmups", t0)
+            return out
+        with tracing.span("compiled.capture"):
             graph = self._graphs[key] = self._capture(leaves, spec, device)
-        return graph.replay(leaves)
+            out = graph.replay(leaves)
+        tracing.count("compiled.captures", t0)
+        return out
+
+    def _run(self, args, device: torch.device):
+        """The function, then the ``end`` mark."""
+        out = self.fn(*args)
+        tracing.mark(tracing.END, device)
+        return out
 
     def _warm_up(self, args, device: torch.device):
         main = torch.cuda.current_stream(device)
         side = self._stream(device)
         side.wait_stream(main)
         with torch.cuda.stream(side):
-            out = self.fn(*args)
+            out = self._run(args, device)
         main.wait_stream(side)
         for o in tree_flatten(out)[0]:
             if isinstance(o, torch.Tensor) and o.device == device:
@@ -172,6 +213,6 @@ class Compiled:
         graph = torch.cuda.CUDAGraph()
         with _build.recording_launches() as launches, \
                 torch.cuda.graph(graph, stream=self._stream(device)):
-            out = self.fn(*tree_unflatten(static, spec))
+            out = self._run(tree_unflatten(static, spec), device)
         out_leaves, out_spec = tree_flatten(out)
         return _Graph(graph, static, out_leaves, out_spec, launches)

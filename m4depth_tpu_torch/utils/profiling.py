@@ -3,14 +3,15 @@
 
 ``device_trace`` and ``TraceWindow`` record a ``torch.profiler`` trace
 (host and, on a card, device activity) into a log directory as a Chrome
-trace file; ``device_breakdown`` splits a trace's device time by component
-and direction without labels in the model; ``benchmark_fn`` gives
+trace file; ``device_breakdown`` splits a trace's device time by the
+model's stage marks (``utils.tracing``); ``benchmark_fn`` gives
 wall-clock statistics of a call that ends in ``torch.cuda.synchronize`` on
 a card; ``compiled_cost`` counts the operations and bytes of one call.
 """
 
 from __future__ import annotations
 
+import bisect
 import collections
 import contextlib
 import json
@@ -22,15 +23,16 @@ import numpy as np
 import torch
 
 from m4depth_tpu_torch.ops import cost
+from m4depth_tpu_torch.utils import tracing
 
 
-def _profiler(with_stack: bool = False):
+def _profiler():
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
-    return profile(activities=activities, with_stack=with_stack)
+    return profile(activities=activities)
 
 
 def _export(prof, log_dir: str) -> str:
@@ -50,16 +52,14 @@ class Trace:
 
 
 @contextlib.contextmanager
-def device_trace(log_dir: Optional[str], with_stack: bool = False):
+def device_trace(log_dir: Optional[str]):
     """Trace the block's host and (on a card) device activity into
     ``log_dir`` as a Chrome trace file; nothing when ``log_dir`` is falsy,
-    as the JAX function. Yields a :class:`Trace` (None when off).
-    ``with_stack`` also records the Python calls, among them each
-    ``nn.Module``'s, which ``device_breakdown`` attributes by."""
+    as the JAX function. Yields a :class:`Trace` (None when off)."""
     if not log_dir:
         yield None
         return
-    trace = Trace(_profiler(with_stack))
+    trace = Trace(_profiler())
     trace.prof.start()
     try:
         yield trace
@@ -126,16 +126,11 @@ def benchmark_fn(fn: Callable, *args, warmup: int = 3, iters: int = 30,
     }
 
 
-# -- device time by component -------------------------------------------
+# -- device time by stage --------------------------------------------------
 
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
-LAUNCH_CATS = ("cuda_runtime", "cuda_driver")
-BACKWARD_OP = "autograd::engine::evaluate_function"
-# a kernel's component: the port's kernels by name ("void (anonymous
-# namespace)::sncv_forward_kernel<...>"), the others by the model's module
-# they were launched under (outermost first wins)
-KERNEL_COMPONENTS = (("::sncv_", "sncv"), ("::dscv_", "dscv"))
-MODULE_COMPONENTS = (("Encoder", "encoder"), ("DispRefiner", "refiner"))
+UNMARKED = "unmarked"     # device work before the trace's first stage mark
+OUTSIDE = "outside"       # device work after an ``end`` mark: between graphs
 
 
 def innermost_attribution(events) -> Dict[str, float]:
@@ -160,88 +155,44 @@ def innermost_attribution(events) -> Dict[str, float]:
     return dict(out)
 
 
-def _component(kernel: str, modules) -> str:
-    for part, comp in KERNEL_COMPONENTS:
-        if part in kernel:
-            return comp
-    for mod in modules:
-        for pattern, comp in MODULE_COMPONENTS:
-            if mod.startswith(pattern):
-                return comp
-    return "other"
-
-
-def _host_context(events):
-    """For each launch on the host, by its correlation id: the nn.Modules
-    open around it (outermost first), the outermost aten op, and the
-    sequence number of the backward node it runs in (None in the
-    forward); and each forward op's modules by its sequence number."""
-    by_lane = collections.defaultdict(list)
-    for e in events:
-        if e.get("cat") in ("cpu_op", "python_function") + LAUNCH_CATS:
-            by_lane[(e.get("pid"), e.get("tid"))].append(e)
-    launches, forward = {}, {}
-    for lane in by_lane.values():
-        lane.sort(key=lambda e: (e["ts"], -e.get("dur", 0)))
-        stack = []
-        for e in lane:
-            while stack and stack[-1]["ts"] + stack[-1].get("dur", 0) \
-                    <= e["ts"]:
-                stack.pop()
-            mods = [s["name"][len("nn.Module: "):] for s in stack
-                    if s["name"].startswith("nn.Module: ")]
-            bwd = next((s["args"].get("Sequence number") for s in stack
-                        if s["name"].startswith(BACKWARD_OP)), None)
-            if e.get("cat") in LAUNCH_CATS:
-                corr = e.get("args", {}).get("correlation")
-                op = next((s["name"] for s in stack
-                           if s["name"].startswith("aten::")), "")
-                launches[corr] = (mods, op, bwd)
-                continue
-            # a backward node's own events (its name, its ops) carry the
-            # node's sequence number too: only the forward's ops map it
-            seq = e.get("args", {}).get("Sequence number")
-            if (e.get("cat") == "cpu_op" and seq is not None and bwd is None
-                    and not e["name"].startswith(BACKWARD_OP)):
-                forward.setdefault(seq, mods)
-            stack.append(e)
-    return launches, forward
-
-
 def device_breakdown(trace_path: str, n: int = 1) -> dict:
-    """Device time of a Chrome trace (``device_trace``'s, recorded with
-    ``with_stack``) in us per call over ``n`` calls, split without overlap:
-    each time point goes to the innermost device event open at it, that
-    event to its kernel's component (``sncv``, ``dscv``, or by the module
-    it was launched under: ``encoder``, ``refiner``, else ``other``) and
-    direction (``bwd`` when launched inside an autograd backward node,
-    whose component is that of the forward op with the node's sequence
-    number). Returns ``busy_us`` (the union of device events),
-    ``groups`` {(direction, component): us}, ``ops`` {(kernel, aten op):
-    us} and ``n_events``; the groups sum to ``busy_us``."""
+    """Device time of a Chrome trace (``device_trace``'s) in us per call
+    over ``n`` calls, by the stage marks of ``utils.tracing``, replayed
+    CUDA graphs included: each device event (kernel, copy, memset) belongs
+    to the stage of the latest mark that started at or before it
+    (``unmarked`` before the first, ``outside`` after an ``end``), and
+    each time point to the innermost device event open at it, so nothing
+    counts twice. Returns ``busy_us`` (the union of device events),
+    ``groups`` {stage: us}, which sum to ``busy_us``, ``ops`` {(kernel,
+    stage): us}, ``n_events`` and ``units``, ``tracing.summarize`` of the
+    trace's marked units (each stage's span from its mark to the next and
+    its busy time, the unit's span and gap, complete and seen units)."""
     with open(trace_path) as f:
-        events = [e for e in json.load(f)["traceEvents"]
-                  if e.get("ph") == "X"]
-    launches, forward = _host_context(events)
-    dev = [e for e in events if e.get("cat") in DEVICE_CATS]
+        dev = sorted((e for e in json.load(f)["traceEvents"]
+                      if e.get("ph") == "X" and e.get("cat") in DEVICE_CATS),
+                     key=lambda e: e["ts"])
+    marks = [(e["ts"], st) for e in dev
+             if (st := tracing.mark_stage(e["name"])) is not None]
+    starts = [t for t, _ in marks]
     keyed = []
     for e in dev:
-        mods, op, bwd = launches.get(e.get("args", {}).get("correlation"),
-                                     ([], "", None))
-        if bwd is not None:
-            mods = forward.get(bwd, [])
-        direction = "fwd" if bwd is None else "bwd"
-        keyed.append((e["ts"], e.get("dur", 0.0),
-                      (direction, _component(e["name"], mods),
-                       e["name"][:60], op)))
+        i = bisect.bisect_right(starts, e["ts"]) - 1
+        stage = (UNMARKED if i < 0 else
+                 OUTSIDE if marks[i][1] == tracing.END and
+                 tracing.mark_stage(e["name"]) != tracing.END
+                 else marks[i][1])
+        keyed.append((e["ts"], e.get("dur", 0.0), (stage, e["name"][:60])))
     per = innermost_attribution(keyed)
     groups, ops = collections.defaultdict(float), collections.defaultdict(
         float)
-    for (direction, comp, name, op), us in per.items():
-        groups[(direction, comp)] += us / n
-        ops[(name, op)] += us / n
+    for (stage, name), us in per.items():
+        groups[stage] += us / n
+        ops[(name, stage)] += us / n
+    found = tracing.units((e["name"], e["ts"], e["ts"] + e.get("dur", 0.0))
+                          for e in dev)
     return dict(busy_us=sum(per.values()) / n, groups=dict(groups),
-                ops=dict(ops), n_events=len(dev))
+                ops=dict(ops), n_events=len(dev),
+                units=tracing.summarize(found))
 
 
 # -- operations and bytes -----------------------------------------------

@@ -862,3 +862,107 @@ def test_capture_of_a_host_sync_raises(cuda):
     assert fn.graphs == 0
     torch.cuda.synchronize()
     assert float((x + 1).sum()) == 8.0
+
+
+# -- stage marks (utils/tracing.py) --------------------------------------------
+
+
+def _frame_stages(levels):
+    """The marks of one frame that runs every level's refiner."""
+    return ["encoder", "glue"] + [s for k in range(levels, 0, -1)
+                                  for s in (f"refiner{k}", f"glue{k}")]
+
+
+def _replay_marks(run, want):
+    """The stage marks in a profile of one call of ``run`` (a replay), in
+    order, with the profile's device events. The profiler once missed a
+    few graph kernels over a window of replays, so up to three one-replay
+    windows are read until one holds ``want``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from m4depth_tpu_torch.utils import tracing
+
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        events = [(e.name, e.time_range.start, e.time_range.end)
+                  for e in prof.events() if e.device_type == DeviceType.CUDA
+                  and not e.name.startswith(tracing.SPAN_PREFIX)]
+        marks = [tracing.mark_stage(n) for n, _, _ in sorted(
+            events, key=lambda e: e[1]) if tracing.mark_stage(n)]
+        if marks == want:
+            break
+    return marks, events
+
+
+def _check_marked_replay(run, want):
+    """Each replay of ``run``'s graph runs as many marks as ``want``; one
+    replay's profile holds them in order, as one complete unit whose
+    stages' spans sum to its span."""
+    from m4depth_tpu_torch.utils import tracing
+
+    before = tracing.mark_launches()
+    run()
+    torch.cuda.synchronize()
+    assert tracing.mark_launches() - before == len(want)
+    marks, events = _replay_marks(run, want)
+    assert marks == want
+    (unit,) = tracing.units(events, want)
+    assert unit.complete and unit.sequence == tuple(want)
+    assert sum(sp for _, sp, _ in unit.stages) == pytest.approx(
+        unit.span_us)
+    assert 0 < unit.busy_us <= unit.span_us
+
+
+def test_replayed_frame_holds_the_stage_marks_in_order(cuda):
+    """The compiled serving step's graph carries the frame's marks (the
+    encoder, the decoder's start, each level's refiner and glue from the
+    deepest, the output) and ``end``; the marks compute nothing, so the
+    replayed frame stays equal to the eager one bit for bit."""
+    from m4depth_tpu_torch.parallel import compile_step
+
+    cfg = ModelConfig(**D4_NARROW)
+    b, hw = 2, 64
+    model = M4Depth(cfg, device=cuda, seed=4)
+    step = compile_step(model)
+    holder = dict(state=init_state(cfg, b, hw, hw, device=cuda), calls=0)
+    rgb, rot, trans, f = (torch.from_numpy(x).to(cuda)
+                          for x in _graph_frames(b, hw, 0, seed=14))
+    cam = Camera(f, f.clone())
+    reset = torch.tensor([True, False], device=cuda)
+
+    def run():
+        holder["state"], holder["depth"] = step(holder["state"], rgb, rot,
+                                                trans, cam, reset)
+        holder["calls"] += 1
+
+    for _ in range(3):
+        run()
+    _check_marked_replay(run, _frame_stages(4) + ["output", "end"])
+    eager = init_state(cfg, b, hw, hw, device=cuda)
+    for _ in range(holder["calls"]):
+        eager, want = model.step(eager, rgb, rot, trans, cam, reset)
+    assert torch.equal(holder["depth"], want)
+
+
+@pytest.mark.parametrize("remat", [False, True])
+def test_replayed_train_step_holds_the_stage_marks_in_order(cuda, remat):
+    """The compiled train step's graph carries the window's frames (the
+    first runs no refiner), then ``loss``, ``backward``, ``optimizer``,
+    ``metrics`` and ``end``; the backward is one stage, also where remat
+    runs the decoder levels again inside it."""
+    from m4depth_tpu_torch.train.step import compile_train_step
+
+    cfg = ModelConfig(**D4_NARROW, remat=remat, remat_policy="all")
+    model = M4Depth(cfg, device=cuda, seed=8)
+    step = compile_train_step(model, make_optimizer(
+        model, TrainConfig(learning_rate=1e-4)))
+    batch = train_batch_on(cuda, b=2, T=3, hw=64, seed=7)
+    for _ in range(3):
+        step(batch)
+    want = (["encoder", "glue"] + 2 * _frame_stages(4)
+            + ["loss", "backward", "optimizer", "metrics", "end"])
+    _check_marked_replay(lambda: step(batch), want)

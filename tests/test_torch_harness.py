@@ -263,6 +263,8 @@ def test_fit_logs_images_and_feeds_the_best_manager(tmp_path):
     assert len(calls) == 2
     records = [json.loads(line) for line in open(logs / "metrics.jsonl")]
     assert [r["step"] for r in records if "train/loss" in r] == [0, 1, 2, 3]
+    assert all(r["train/loader_wait_ms"] >= 0 for r in records
+               if "train/loss" in r)
     assert sum("epoch/step_ms_median" in r for r in records) == 2
     assert sum("val/abs_rel" in r for r in records) == 2
     best = BestCheckpointManager(str(tmp_path / "train"),

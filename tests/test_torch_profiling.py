@@ -3,7 +3,7 @@ the CPU: ``device_trace`` writes a trace; ``compiled_cost`` counts a
 convolution as the JAX package's ``compiled_cost`` (XLA's cost analysis)
 does, and a cost-volume call once, by its analytic work, forward and
 backward; ``device_breakdown`` splits a trace's device time without
-overlap by direction and component."""
+overlap by the stage marks of ``utils.tracing``, replays included."""
 
 import json
 
@@ -20,6 +20,7 @@ from m4depth_tpu_torch.ops import (
     parallax_sweeping_cv_fused,
     spatial_cost_volume_fused,
 )
+from m4depth_tpu_torch.utils import tracing
 from m4depth_tpu_torch.utils.profiling import (
     compiled_cost,
     device_breakdown,
@@ -111,44 +112,59 @@ def X(name, cat, ts, dur, tid=1, pid=1, **args):
                 tid=tid, args=args)
 
 
+def _replay(t, drop=()):
+    """Chrome-trace events of one replay at ``t`` us, on stream 7 but a
+    cost-volume kernel inside a conv on stream 8: a copy in, the marks of
+    ``encoder``, ``glue``, ``refiner1``, ``glue1`` and ``end`` (those in
+    ``drop`` left out), kernels between them, a copy out; and the host's
+    span, which the profiler also draws on the device's timeline."""
+    def mark(stage, at):
+        return X(f"void m4d_stage_mark<{tracing.STAGE_INDEX[stage]}>()",
+                 "kernel", t + at, 1, pid=0, tid=7)
+
+    ev = [X("Memcpy HtoD (Pinned -> Device)", "gpu_memcpy", t, 5, pid=0,
+            tid=7),
+          mark("encoder", 10), X("conv_a", "kernel", t + 12, 20, pid=0,
+                                 tid=7),
+          mark("glue", 40), X("dscv_forward_kernel", "kernel", t + 42, 10,
+                              pid=0, tid=7),
+          mark("refiner1", 60), X("conv_b", "kernel", t + 62, 30, pid=0,
+                                  tid=7),
+          X("void (anonymous namespace)::sncv_forward_kernel<__half, 8, 3>",
+            "kernel", t + 70, 10, pid=0, tid=8),
+          mark("glue1", 100), X("elementwise", "kernel", t + 102, 8, pid=0,
+                                tid=7),
+          mark("end", 120),
+          X("Memcpy DtoH (Device -> Pinned)", "gpu_memcpy", t + 130, 4,
+            pid=0, tid=7),
+          X("m4d#compiled.launch", "gpu_user_annotation", t, 134, pid=0,
+            tid=7),
+          X("m4d#compiled.launch", "user_annotation", t - 20, 30),
+          X("cudaGraphLaunch", "cuda_runtime", t - 15, 10)]
+    return [e for e in ev if not any(
+        e["name"].endswith(f"<{tracing.STAGE_INDEX[d]}>()") for d in drop)]
+
+
 def test_device_breakdown_attributes_without_overlap(tmp_path):
-    """Forward launches take their module's component, the cost-volume
-    kernels theirs by name; a launch inside a backward node takes the
-    component of the forward op with the node's sequence number; a
-    kernel inside another (or overlapping it on another stream) counts
-    only where it is the innermost; the groups sum to the busy time."""
-    host = [
-        X("nn.Module: Encoder_0", "python_function", 0, 100),
-        X("aten::convolution", "cpu_op", 10, 20, **{"Sequence number": 1}),
-        X("cudaLaunchKernel", "cuda_runtime", 15, 2, correlation=11),
-        X("nn.Module: DispRefiner_0", "python_function", 100, 100),
-        X("aten::convolution", "cpu_op", 110, 20, **{"Sequence number": 2}),
-        X("cudaLaunchKernel", "cuda_runtime", 115, 2, correlation=12),
-        X("cudaLaunchKernel", "cuda_runtime", 150, 2, correlation=13),
-        # the backward thread's node, whose own event (listed first, out of
-        # the module) carries the sequence number too
-        X("autograd::engine::evaluate_function: ConvolutionBackward0",
-          "cpu_op", 300, 50, tid=2, **{"Sequence number": 2}),
-        X("ConvolutionBackward0", "cpu_op", 301, 48, tid=2,
-          **{"Sequence number": 2}),
-        X("cudaLaunchKernel", "cuda_runtime", 310, 2, tid=2, correlation=14),
-    ]
-    dev = [
-        X("cudnn_conv_a", "kernel", 20, 30, pid=0, tid=7, correlation=11),
-        X("cudnn_conv_b", "kernel", 120, 40, pid=0, tid=7, correlation=12),
-        # on another stream, inside conv_b: it takes 10 us of conv_b's 40
-        X("void (anonymous namespace)::sncv_forward_kernel<__half, 8, 3>",
-          "kernel", 130, 10, pid=0, tid=8, correlation=13),
-        X("cudnn_conv_dgrad", "kernel", 320, 25, pid=0, tid=7,
-          correlation=14),
-    ]
-    r = device_breakdown(_trace(tmp_path, host[7:] + host[:7] + dev), n=1)
-    assert r["n_events"] == 4
-    assert r["groups"] == {("fwd", "encoder"): 30.0,
-                           ("fwd", "refiner"): 30.0,
-                           ("fwd", "sncv"): 10.0,
-                           ("bwd", "refiner"): 25.0}
-    assert r["busy_us"] == sum(r["groups"].values()) == 95.0
-    assert r["ops"][("cudnn_conv_b", "aten::convolution")] == 30.0
-    half = device_breakdown(_trace(tmp_path, host + dev), n=2)
-    assert half["busy_us"] == 47.5
+    """Each device event takes the stage of the latest mark before it
+    (``unmarked`` before the first, ``outside`` after an ``end``: the
+    copies between replays); a kernel inside another (on another stream)
+    counts only where it is the innermost; the stages sum to the busy
+    time. Over three replays, the third without its ``glue`` mark (its
+    cost volume then falls in ``encoder``), two are complete units, whose
+    stage spans run mark to mark."""
+    events = _replay(0) + _replay(200) + _replay(400, drop=("glue",))
+    r = device_breakdown(_trace(tmp_path, events[::-1]), n=1)
+    assert r["n_events"] == 3 * 12 - 1
+    assert r["groups"] == {"unmarked": 5.0, "outside": 22.0,
+                           "encoder": 73.0, "glue": 22.0,
+                           "refiner1": 93.0, "glue1": 27.0, "end": 3.0}
+    assert r["busy_us"] == sum(r["groups"].values()) == 245.0
+    assert r["ops"][("conv_b", "refiner1")] == 60.0
+    assert r["ops"][("dscv_forward_kernel", "encoder")] == 10.0
+    u = r["units"]
+    assert (u["complete"], u["seen"]) == (2, 3)
+    assert u["stages"]["encoder"] == (30.0, 21.0)
+    assert u["span_us"] == 111.0 and u["busy_us"] == 73.0
+    third = device_breakdown(_trace(tmp_path, events), n=3)
+    assert third["busy_us"] == pytest.approx(245.0 / 3)
