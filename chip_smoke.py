@@ -32,14 +32,16 @@ exits non-zero and prints no result line:
 6. the serving path: streaming ``M4Depth.step`` of the d6 model at
    384x384, b=1, bfloat16 compute, with seeded random weights; ms/frame
    over 5 timed blocks, peak memory, and each kernel's launches (6 per
-   frame of each forward kernel, none of the backward ones);
+   frame of each forward kernel and of each glue kernel, none of the
+   backward ones);
 7. a ``torch.profiler`` window over serving frames: device time by kernel
    and the device's busy share;
 8. the training path: ``make_train_step`` of the d6 model at 384x384,
    b=3, T=4, bfloat16 compute and cost volumes, Adam at 1e-4, on a seeded
    batch; ms/step over timed blocks, peak memory, each step's loss, and
-   each kernel's launches (18 per step of each of the four); then a
-   profiler window over training steps;
+   each kernel's launches (18 per step of each of the four cost-volume
+   kernels, none of the glue's); then a profiler window over training
+   steps;
 9. each forward kernel's device time at each level shape (b=1, serving),
    beside its plain version's time and its bound, and the DSCV forward's
    time on the inputs one serving frame gave it; then V1's SNCV forward;
@@ -129,9 +131,17 @@ exits non-zero and prints no result line:
    compiled run's weights and Adam state), three compiled steps at T=8
    with remat "all"; the CLI's eval mode (compiled) against the eager
    evaluator to ``testing.EVAL_METRIC_TOL``;
-21. one JSON line listing the kernels (the four, then their float16
-   instantiations), then the result line ``{"ok": true, "device":
-   {...}}``.
+21. the decoder glue's three kernels (``ops/csrc/glue.cu``), each against
+   its plain version (``ops/glue.py``) on the same inputs at the six level
+   shapes of d6 at 384x384 (b=1, bf16 convs and cost volumes): float32
+   outputs to ``SNCV_TOL``, bfloat16 ones within one ulp; then each
+   kernel's device time beside its plain version's and its bound. The
+   launch checks of every phase count these kernels too: once a level
+   where an M4Depth level runs without grad (serving, evaluation), never
+   in training;
+22. one JSON line listing the kernels (the four cost-volume kernels, their
+   float16 instantiations, then the three glue kernels), then the result
+   line ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device it exits with code 2 before running anything.
 """
@@ -169,12 +179,13 @@ from m4depth_tpu_torch.ops import (
     KERNELS,
     _build,
     cost,
+    glue,
     parallax_sweeping_cv,
     parallax_sweeping_cv_fused,
     spatial_cost_volume,
     spatial_cost_volume_fused,
 )
-from m4depth_tpu_torch.ops.cost_volume import _dscv_backward
+from m4depth_tpu_torch.ops.cost_volume import _dscv_backward, round_parallax
 from m4depth_tpu_torch.ops.sncv import KERNEL_DTYPES, _sncv_backward
 from m4depth_tpu_torch.testing import (
     DSCV_CV_TOL,
@@ -189,6 +200,7 @@ from m4depth_tpu_torch.testing import (
     assert_sncv_grads_close,
     assert_step_close,
     assert_train_step_close,
+    assert_within_ulps,
     float32_step,
     max_abs_err,
     sncv_plain_grads,
@@ -200,6 +212,11 @@ from m4depth_tpu_torch.utils.profiling import compiled_cost
 
 FORWARD = ("sncv_forward", "dscv_forward")
 BACKWARD = ("sncv_backward", "dscv_backward")
+# the decoder glue's kernels (ops/csrc/glue.cu): an M4Depth level without
+# grad (serving, evaluation) launches each once where it launches the two
+# forward kernels; with grad (training) the glue is plain PyTorch
+GLUE = ("glue_prep", "glue_assemble", "glue_finish")
+SERVING = FORWARD + GLUE
 
 # H100 SXM published peaks: HBM3 bandwidth, and float32 outside the tensor
 # cores (both kernels multiply and add float32 on the CUDA cores)
@@ -582,7 +599,7 @@ def phase_model_card_vs_cpu(dev) -> None:
             f"{depth['cpu'].max().item():.4g})")
     for k, kern in KERNELS.items():
         n = kern.launches - before[k]
-        want = 2 * 3 * cfg.num_levels if k in FORWARD else 0
+        want = 2 * 3 * cfg.num_levels if k in SERVING else 0
         check(n == want, f"{k}: {n} launches in 2 x 3 frames on the card, "
               f"expected {want}")
 
@@ -657,7 +674,8 @@ def phase_train_card_vs_cpu(dev) -> None:
                        make_train_step(model, opt)(batch).items()}
             for k, kern in KERNELS.items():
                 n = kern.launches - before[k]
-                want = 0 if plain else (T - 1) * cfg.num_levels
+                want = 0 if plain or k in GLUE else (
+                    (T - 1) * cfg.num_levels)
                 check(n == want, f"{k}: {n} launches in one step on {d}, "
                       f"expected {want}")
             runs.append(dict(
@@ -746,7 +764,7 @@ def phase_main_path(dev, family=M4Depth, per_frame=None,
     base = torch.cuda.memory_allocated()
     cfg = ModelConfig(compute_dtype="bfloat16", cv_dtype=cv_dtype)
     if per_frame is None:
-        per_frame = {k: cfg.num_levels if k in FORWARD else 0
+        per_frame = {k: cfg.num_levels if k in SERVING else 0
                      for k in KERNELS}
     model = family(cfg, device=dev, seed=0)
     x = main_path_inputs(dev)
@@ -878,7 +896,8 @@ def phase_train_path(dev, family=M4Depth, T: int = TRAIN_T,
     cfg = ModelConfig(**{"compute_dtype": "bfloat16",
                          "cv_dtype": "bfloat16", **cfg_kw})
     if per_step is None:
-        per_step = dict.fromkeys(KERNELS, (T - 1) * cfg.num_levels)
+        per_step = {k: 0 if k in GLUE else (T - 1) * cfg.num_levels
+                    for k in KERNELS}
     model = family(cfg, device=dev, seed=0)
     step = make_train_step(model if wrap is None else wrap(model),
                            make_optimizer(model, TrainConfig(
@@ -984,9 +1003,11 @@ def phase_remat(dev) -> dict:
     for name, kw, per_step in (
             ("none", {}, None),
             ("all", dict(remat=True, remat_policy="all"),
-             {k: fwd2 * (2 if k in FORWARD else 1) for k in KERNELS}),
+             {k: 0 if k in GLUE else fwd2 * (2 if k in FORWARD else 1)
+              for k in KERNELS}),
             ("dscv", dict(remat=True, remat_policy="dscv"),
-             {k: fwd2 * (2 if k == "dscv_forward" else 1) for k in KERNELS})):
+             {k: 0 if k in GLUE else fwd2 * (2 if k == "dscv_forward" else 1)
+              for k in KERNELS})):
         log(f"  remat {name}:")
         runs[name] = phase_train_path(dev, T=REMAT_T, per_step=per_step, **kw)
         del runs[name]["run"]                 # frees the model and batch
@@ -1024,11 +1045,15 @@ def phase_gates() -> dict:
               f"the {model} geometry gate: AbsRel {metrics[0]}, Delta1 "
               f"{metrics[1]}")
         # d4, T=2: M4Depth's cost volumes run on frame 1 of each window, V1's
-        # on both frames; the evaluation adds one window's forwards
+        # on both frames; the evaluation adds one window's forwards, and,
+        # without grad, M4Depth's glue kernels: glue_prep on both frames,
+        # the other two where the cost volumes run
         frames = 2 if model == "m4depth-v1" else 1
         for k, n in launches.items():
-            if model == "m4depth-v1" and k.startswith("dscv"):
+            if model == "m4depth-v1" and (k.startswith("dscv") or k in GLUE):
                 want = 0
+            elif k in GLUE:
+                want = 4 * (2 if k == "glue_prep" else 1)
             else:
                 want = 4 * frames * (steps + (k in FORWARD))
             check(n == want, f"{model} gate: {k} {n} launches, expected "
@@ -1190,9 +1215,10 @@ def phase_cli(dev, train_ms_no_loading: float) -> dict:
         text = run_cli(["--mode=train", f"--ckpt_dir={ckpt}",
                         f"--total_steps={CLI_TRAIN_STEPS}"] + train_args)
         out["train_launches"] = launch_counts()
-        per_step = (TRAIN_T - 1) * 6
+        per_step = {k: 0 if k in GLUE else (TRAIN_T - 1) * 6
+                    for k in KERNELS}
         for k, n in out["train_launches"].items():
-            check(n == per_step * CLI_TRAIN_STEPS,
+            check(n == per_step[k] * CLI_TRAIN_STEPS,
                   f"CLI train: {k} {n} launches in {CLI_TRAIN_STEPS} steps")
         ms_step = parsed(r"step ms median ([0-9.]+)", text, "step time")
         losses = [float(v) for v in re.findall(r"loss=([^ ]+)", text)]
@@ -1221,7 +1247,8 @@ def phase_cli(dev, train_ms_no_loading: float) -> dict:
                  f"--total_steps={CLI_AUGMENT_STEPS}", "--augment_device"]
                 + train_args)
         aug = launch_counts()
-        check(all(n == per_step * CLI_AUGMENT_STEPS for n in aug.values()),
+        check(all(n == per_step[k] * CLI_AUGMENT_STEPS
+                  for k, n in aug.items()),
               f"CLI train --augment_device launches {aug}")
 
         # 4. validation of the latest checkpoint, by the child process that
@@ -1266,7 +1293,7 @@ def phase_cli(dev, train_ms_no_loading: float) -> dict:
         out["eval_launches"] = launch_counts()
         n_frames = STORE_TRAJ * STORE_FRAMES
         for k, n in out["eval_launches"].items():
-            want = 6 * n_frames if k in FORWARD else 0
+            want = 6 * n_frames if k in SERVING else 0
             check(n == want, f"CLI eval: {k} {n} launches, expected {want}")
         ms_frame = parsed(r"evaluated \d+ frames in [0-9.]+ s \(([0-9.]+) "
                           r"ms/frame", text, "eval time")
@@ -1387,8 +1414,9 @@ def phase_cli(dev, train_ms_no_loading: float) -> dict:
         out["remat_ms_step"] = parsed(r"step ms median ([0-9.]+)", text,
                                       "remat step time")
         for k, count in out["remat_launches"].items():
-            want = ((REMAT_T - 1) * 6 * (2 if k in FORWARD else 1)
-                    * CLI_REMAT_STEPS)
+            want = 0 if k in GLUE else (
+                (REMAT_T - 1) * 6 * (2 if k in FORWARD else 1)
+                * CLI_REMAT_STEPS)
             check(count == want, f"CLI --remat: {k} {count} launches, "
                   f"expected {want}")
 
@@ -1410,7 +1438,7 @@ def phase_cli(dev, train_ms_no_loading: float) -> dict:
         out["finetune_ms_step"] = parsed(r"step ms median ([0-9.]+)", text,
                                          "finetune step time")
         for k, count in out["finetune_launches"].items():
-            check(count == (TRAIN_T - 1) * 6 * FINETUNE_STEPS,
+            check(count == per_step[k] * FINETUNE_STEPS,
                   f"finetune: {k} {count} launches in {FINETUNE_STEPS} steps")
         ft = torch.load(os.path.join(root, "ft", "train", "0.pt"),
                         map_location="cpu", weights_only=True)
@@ -1774,7 +1802,7 @@ def phase_sharded_serving(dev) -> dict:
               and bool(torch.isfinite(depth).all()),
               f"N={n}: depth {depth.shape}, finite")
         for k, count in launches.items():
-            want = 6 * n_steps if k in FORWARD else 0
+            want = 6 * n_steps if k in SERVING else 0
             check(count == want, f"N={n}: {k} {count} launches in "
                   f"{n_steps} steps, expected {want}")
         check(mem_end[1:] == mem_warm[1:], f"N={n}: (memory_allocated(), "
@@ -1865,7 +1893,7 @@ def phase_fresh_frames(dev) -> dict:
     check(sess.flush() is None, "a second flush returns None")
     launches = launch_counts()
     for k, count in launches.items():
-        want = 6 * len(frames) if k in FORWARD else 0
+        want = 6 * len(frames) if k in SERVING else 0
         check(count == want, f"FreshFrameStream: {k} {count} launches in "
               f"{len(frames)} frames, expected {want}")
     for t, (a, b) in enumerate(zip(piped, serial)):
@@ -2076,9 +2104,9 @@ def phase_ddp_gloo(dev) -> dict:
         check(all(torch.equal(p, ranks[0]["check"]["params"][n])
                   for n, p in out["check"]["params"].items()),
               f"rank {r}'s weights after the step equal rank 0's")
-    per_step = (TRAIN_T - 1) * 6
     for r, out in enumerate(ranks):
         for k, count in out["launches"].items():
+            per_step = 0 if k in GLUE else (TRAIN_T - 1) * 6
             check(count == per_step * GLOO_TIMED_STEPS,
                   f"rank {r}: {k} {count} launches in {GLOO_TIMED_STEPS} "
                   f"steps, expected {per_step} a step")
@@ -2375,7 +2403,7 @@ def phase_tools(dev) -> dict:
     frames = 1 + fps.WARMUP_FRAMES + fps.REPEATS * TOOL_FPS_FRAMES \
         + fps.PROFILED_FRAMES
     check(r["finite"] and all(
-        n == (6 * frames if k in FORWARD else 0)
+        n == (6 * frames if k in SERVING else 0)
         for k, n in launches["fps"].items()), f"fps launches in {frames} "
         f"frames: {launches['fps']}")
     bd = r["breakdown"]
@@ -2396,8 +2424,8 @@ def phase_tools(dev) -> dict:
     steps = 1 + train_prof.WARMUP_STEPS \
         + train_prof.REPEATS * TOOL_TRAIN_STEPS + train_prof.PROFILED_STEPS
     check(np.isfinite(r["loss"]) and all(
-        n == (TRAIN_T - 1) * 6 * steps
-        for n in launches["train_prof"].values()),
+        n == (0 if k in GLUE else (TRAIN_T - 1) * 6 * steps)
+        for k, n in launches["train_prof"].items()),
         f"train_prof launches in {steps} steps: {launches['train_prof']}")
     bd = r["breakdown"]
     check(bd["n_events"] > 0 and abs(sum(bd["groups"].values())
@@ -2464,7 +2492,10 @@ DEVICE_KERNELS = {"sncv_forward": ("sncv_forward_kernel",),
                   "sncv_backward": ("sncv_backward_kernel",
                                     "sncv_backward_band_kernel"),
                   "dscv_forward": ("dscv_forward_kernel",),
-                  "dscv_backward": ("dscv_backward_kernel",)}
+                  "dscv_backward": ("dscv_backward_kernel",),
+                  "glue_prep": ("glue_prep_kernel",),
+                  "glue_assemble": ("glue_assemble_kernel",),
+                  "glue_finish": ("glue_finish_kernel",)}
 HOST_LAUNCHES = ("cudaLaunchKernel", "cuLaunchKernel", "cudaGraphLaunch",
                  "cudaMemcpyAsync", "cudaMemsetAsync")
 
@@ -2762,14 +2793,14 @@ def phase_graphs(dev) -> dict:
     out = {}
     log("  serving, compiled against eager")
     out["serve"] = graphed_serving(dev, M4Depth, {
-        k: 6 if k in FORWARD else 0 for k in KERNELS}, card)
+        k: 6 if k in SERVING else 0 for k in KERNELS}, card)
     out["v1_serve"] = graphed_serving(dev, M4DepthV1, {
         k: 6 if k == "sncv_forward" else 0 for k in KERNELS}, card)
     torch.cuda.empty_cache()
 
     log("  training, compiled against eager")
-    out["train"] = graphed_training(dev, M4Depth, dict.fromkeys(
-        KERNELS, (TRAIN_T - 1) * 6), card)
+    out["train"] = graphed_training(dev, M4Depth, {
+        k: 0 if k in GLUE else (TRAIN_T - 1) * 6 for k in KERNELS}, card)
     out["v1_train"] = graphed_training(dev, M4DepthV1, v1_launches(TRAIN_T),
                                        card)
     torch.cuda.empty_cache()
@@ -2825,7 +2856,7 @@ def phase_graphs(dev) -> dict:
     launches = launch_counts()
     fwd2 = (REMAT_T - 1) * 6
     for k, n in launches.items():
-        want = 3 * fwd2 * (2 if k in FORWARD else 1)
+        want = 0 if k in GLUE else 3 * fwd2 * (2 if k in FORWARD else 1)
         check(n == want, f"remat all, compiled: {k} {n} launches in 3 "
               f"steps, expected {want}")
     check(all(np.isfinite(losses)), f"remat all, compiled: losses {losses}")
@@ -2851,7 +2882,7 @@ def phase_graphs(dev) -> dict:
         launches = launch_counts()
         n_frames = STORE_TRAJ * STORE_FRAMES
         for k, n in launches.items():
-            want = 6 * n_frames if k in FORWARD else 0
+            want = 6 * n_frames if k in SERVING else 0
             check(n == want, f"CLI eval, compiled: {k} {n} launches")
         ms_frame = parsed(r"evaluated \d+ frames in [0-9.]+ s \(([0-9.]+) "
                           r"ms/frame", text, "eval time")
@@ -2880,6 +2911,182 @@ def phase_graphs(dev) -> dict:
             f"{EVAL_METRIC_TOL}")
         out["cli_eval"] = dict(ms_frame=ms_frame, launches=launches)
     return out
+
+
+# -- phase 21 ---------------------------------------------------------------
+
+GLUE_OTHER = 4          # the memory channels a level hands the next
+
+
+def glue_cases(spec, n_levels: int, dev, seed: int, cv_dtype) -> dict:
+    """Each glue kernel's fused and plain calls at one d6 level shape
+    (b=1, bf16 features), as ``DecoderLevel`` makes them without grad:
+    the full-resolution camera, the deeper estimate at half the size
+    (none at the deepest level), the state, bench's motion; with each
+    kernel the bytes it reads and writes and a rough count of its float32
+    operations (a few per element: the bytes bound all three by far)."""
+    level, h, w, C, cuts, _ = spec
+    g = torch.Generator().manual_seed(seed)
+    f = torch.full((1, 2), FOCAL)
+
+    def u(lo, hi, *shape):
+        return torch.rand(*shape, generator=g) * (hi - lo) + lo
+
+    hd, wd = -(-h // 2), -(-w // 2)
+    deeper = None if level == n_levels else (
+        u(2, 40, 1, hd, wd, 1), u(0.1, 3, 1, hd, wd, 1),
+        torch.randn(1, hd, wd, GLUE_OTHER, generator=g))
+    reproj = u(0, 5, 1, h, w, 1)
+    reproj[:, ::3] = 0.0        # the log's 1e-12 clamp
+    x = dict(curr_f=torch.randn(1, h, w, C, generator=g),
+             f_maps=torch.randn(1, h, w, C, generator=g),
+             depth=u(2, 40, 1, h, w, 1), rot=torch.tensor([ROT]),
+             trans=torch.tensor([TRANS]), f=f, c=f.clone(),
+             cv=torch.randn(1, h, w, 9 * cuts, generator=g),
+             sncv=torch.randn(1, h, w, 49 * cuts, generator=g),
+             reproj=reproj,
+             out=torch.randn(1, h, w, 1 + GLUE_OTHER, generator=g) * 3)
+    x = {k: v.to(dev) for k, v in x.items()}
+    for k in ("curr_f", "f_maps", "out"):
+        x[k] = x[k].to(torch.bfloat16)
+    if deeper is not None:
+        deeper = tuple(t.to(dev) for t in deeper)
+    para_mul = 2.0 ** (level - 3)
+    prep_args = (x["curr_f"], deeper, (x["f_maps"], x["depth"]), x["trans"],
+                 Camera(x["f"], x["c"]), 2.0 ** level, cuts, True,
+                 GLUE_OTHER, 1000.0, cv_dtype)
+    prev, cam_l = glue.glue_prep(*prep_args)[:2]
+    asm_args = (x["cv"], prev[1], prev[2], x["sncv"], x["reproj"], para_mul,
+                torch.bfloat16)
+    # the serving step passes its reset flags on every frame
+    go = torch.zeros(1, dtype=torch.bool, device=dev)
+
+    def fin_args(reset):
+        return (x["out"], prev, reset, x["rot"], x["trans"], cam_l,
+                para_mul, 1000.0)
+
+    def plain_prep():
+        # and the roundings that the cost-volume wrappers then make, which
+        # the kernel makes in their place
+        r = glue.glue_prep(*prep_args)
+        return (r[:2] + (r[2].to(cv_dtype), r[3].to(cv_dtype),
+                         round_parallax(r[4], cv_dtype)))
+
+    def nbytes(*ts):
+        return sum(t.numel() * t.element_size() for t in ts if t is not None)
+
+    n_pix, cv_size = h * w, torch.finfo(cv_dtype).bits // 8
+    f_input = glue.glue_assemble(*asm_args)
+    return dict(
+        glue_prep=dict(
+            fused=lambda: glue.glue_prep_fused(*prep_args), plain=plain_prep,
+            nbytes=(nbytes(x["curr_f"], x["f_maps"], x["depth"], *prev,
+                           *(deeper or ()))
+                    + n_pix * (2 * C + 1) * cv_size),
+            flops=6 * n_pix * C + 60 * n_pix),
+        glue_assemble=dict(
+            fused=lambda: glue.glue_assemble_fused(*asm_args),
+            plain=lambda: glue.glue_assemble(*asm_args),
+            nbytes=nbytes(x["cv"], prev[1], prev[2], x["sncv"], x["reproj"],
+                          f_input),
+            flops=6 * n_pix),
+        glue_finish=dict(
+            fused=lambda reset=go: glue.glue_finish_fused(*fin_args(reset)),
+            plain=lambda reset=go: glue.glue_finish(*fin_args(reset)),
+            nbytes=nbytes(x["out"], *prev, *prev, prev[0]),
+            flops=60 * n_pix))
+
+
+def check_glue_case(name: str, case: dict, cv, dev, what: str) -> tuple:
+    """One kernel's results against its plain version's on the same
+    inputs: float32 to SNCV_TOL, outputs rounded to bfloat16 (features of
+    bfloat16 convs, the previous parallax, the refiner's input) within
+    one bfloat16 ulp; the largest float32 error and the largest rounded
+    one in ulps. The finish runs without a reset, with none set and with
+    one set."""
+    f32_err, ulps = 0.0, 0.0
+
+    def close(got, want, key):
+        nonlocal f32_err
+        check(got.dtype == torch.float32 and got.shape == want.shape,
+              f"{what} {key}: {got.dtype} {tuple(got.shape)}")
+        torch.testing.assert_close(got, want, **SNCV_TOL,
+                                   msg=f"{what} {key}")
+        f32_err = max(f32_err, max_abs_err(got, want))
+
+    if name == "glue_prep":
+        got, want = case["fused"](), case["plain"]()
+        for i, key in enumerate(("depth", "parallax", "other")):
+            close(got[0][i], want[0][i], f"deeper {key}")
+        check(all(torch.equal(a, b) for a, b in zip(got[1], want[1])),
+              f"{what} intrinsics")
+        for i, key in ((2, "curr_p"), (3, "prev_p"), (4, "para_prev_t")):
+            ulps = max(ulps, assert_within_ulps(
+                got[i], want[i], f"{what} {key}",
+                spacing_dtype=torch.bfloat16 if i < 4 else cv))
+    elif name == "glue_assemble":
+        ulps = assert_within_ulps(case["fused"](), case["plain"](),
+                                  f"{what} f_input")
+    else:
+        for reset in (None, torch.tensor([False], device=dev),
+                      torch.tensor([True], device=dev)):
+            (est, depth), (west, wdepth) = (case["fused"](reset),
+                                            case["plain"](reset))
+            for key, a, b in zip(("depth", "parallax", "other", "next"),
+                                 (*est, depth), (*west, wdepth)):
+                close(a, b, f"{key} (reset {reset})")
+    return f32_err, ulps
+
+
+def phase_glue(cfg: ModelConfig, dev) -> dict:
+    """The decoder glue's kernels at d6's six level shapes (384x384, b=1,
+    bf16 convs and cost volumes), each against its plain version on the
+    same inputs (``check_glue_case``), then its device time a call beside
+    the plain version's and its bound; totals a serving frame (each
+    kernel runs once a level)."""
+    totals = {k: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, t_bytes=0.0,
+                      t_ops=0.0, max_abs_err=0.0, max_ulps=0.0)
+              for k in GLUE}
+    levels = []
+    for spec in level_specs(cfg, 1):
+        level, h, w, C, cuts = spec[:5]
+        cases = glue_cases(spec, cfg.num_levels, dev, 21 + level,
+                           cfg.torch_cv_dtype)
+        row = dict(level=level, h=h, w=w, C=C, cuts=cuts)
+        for name in GLUE:
+            d = cases[name]
+            err, ulps = check_glue_case(name, d, cfg.torch_cv_dtype, dev,
+                                        f"level {level} {h}x{w} {name}")
+            ms = device_ms(d["fused"], 100)
+            # a plain call queues tens of small kernels: few calls keep them
+            # inside the launch queue while the spin runs
+            plain_ms = device_ms(d["plain"], 3)
+            b_ms, b_by = bound(d["nbytes"], d["flops"])
+            t = totals[name]
+            t["ms"] += ms
+            t["plain_ms"] += plain_ms
+            t["bound_ms"] += b_ms
+            t["t_bytes"] += d["nbytes"] / HBM_BYTES_PER_S * 1e3
+            t["t_ops"] += d["flops"] / FP32_FLOPS_PER_S * 1e3
+            t["max_abs_err"] = max(t["max_abs_err"], err)
+            t["max_ulps"] = max(t["max_ulps"], ulps)
+            row[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                             bound_by=b_by, bytes=d["nbytes"],
+                             flops=d["flops"], max_abs_err=err,
+                             max_ulps=ulps)
+            log(f"  level {level} {h}x{w} C={C} cuts={cuts} {name}: kernel "
+                f"{ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} us, bound "
+                f"{b_ms * 1e3:.3f} us ({b_by}; {d['nbytes']} B), "
+                f"{100 * b_ms / ms:.1f}% of bound; max |float32 error| "
+                f"{err:.3e}, max rounded error {ulps:.2f} ulp")
+        levels.append(row)
+    log(json.dumps({"glue_levels": levels}))
+    for name, t in totals.items():
+        log(f"  {name}: {t['ms'] * 1e3:.1f} us/frame (bound "
+            f"{t['bound_ms'] * 1e3:.2f} us, "
+            f"{100 * t['bound_ms'] / t['ms']:.1f}% of bound; plain "
+            f"{t['plain_ms'] * 1e3:.1f} us)")
+    return totals
 
 
 KERNEL_INFO = {
@@ -3029,6 +3236,9 @@ def main() -> int:
         "training of both families against the eager steps, in turns; a "
         f"float32 check; T={REMAT_T} with remat; the CLI's eval mode")
     graphs = timed(20, phase_graphs, dev)
+    log("== phase 21: the decoder glue's kernels against their plain "
+        "versions (d6 384x384 level shapes, b=1, bf16), timed")
+    glue_totals = timed(21, phase_glue, serving, dev)
 
     kernels = []
     for key, info in KERNEL_INFO.items():
@@ -3138,6 +3348,30 @@ def main() -> int:
         check(kernels[-1]["launches_per_step"]
               == f16["train"]["per_step"][key],
               f"{key} float16 launches per step")
+    # the decoder glue's kernels, which run only without grad: launches are
+    # the serving path's (phase 6, counted from 0 just before it), times a
+    # serving frame (b=1, six levels); the JAX package's XLA fuses this glue
+    for key in GLUE:
+        t = glue_totals[key]
+        n_serve = serve["launches"][key]
+        kernels.append(dict(
+            name=key, route="cuda",
+            source="m4depth_tpu_torch/ops/csrc/glue.cu", replaces=None,
+            plain=f"m4depth_tpu_torch/ops/glue.py::{key}",
+            launches=n_serve,
+            serving_launches_per_frame=n_serve // serve["n_frames"],
+            launches_per_step=train["launches"][key] // train["n_steps"],
+            cli_eval_launches=cli["eval_launches"][key],
+            graph_serving_launches_per_frame=(
+                graphs["serve"]["launches"][key] // GRAPH_FRAMES),
+            graph_profiled_per_frame=graphs["serve"]["replay"][key],
+            max_abs_err=t["max_abs_err"], max_ulps=t["max_ulps"],
+            ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+            bound_by="bytes" if t["t_bytes"] >= t["t_ops"] else "operations",
+            library_ms=None, passed=True))
+        check(kernels[-1]["serving_launches_per_frame"] == serving.num_levels
+              and kernels[-1]["launches_per_step"] == 0,
+              f"{key}: once a level a serving frame, never in training")
     log("phase times: " + ", ".join(f"{k} {v:.1f} s" for k, v in
                                     times.items()))
     log(json.dumps({"compiled_cost": costs}))

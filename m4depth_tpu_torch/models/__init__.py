@@ -5,7 +5,6 @@ from m4depth_tpu_torch.models.decoder import (
     DispRefiner,
     LevelEstimate,
     LevelState,
-    prep_features,
 )
 from m4depth_tpu_torch.models.encoder import DomainNorm, Encoder, leaky_relu
 from m4depth_tpu_torch.models.m4depth import (
@@ -21,6 +20,7 @@ from m4depth_tpu_torch.models.m4depth_v1 import (
     inverse_leaky_relu,
     m4depth_v1_loss,
 )
+from m4depth_tpu_torch.ops.glue import prep_features
 
 __all__ = [
     "DecoderLevel", "DecoderLevelV1", "DispRefiner", "DomainNorm", "Encoder",

@@ -16,16 +16,19 @@ import torch.nn as nn
 from torch.utils.checkpoint import checkpoint
 
 from m4depth_tpu_torch.config import ModelConfig
-from m4depth_tpu_torch.geometry import (
-    Camera,
-    parallax_to_depth,
-    prev_depth_to_parallax,
-    resize_bilinear_v1,
-)
+from m4depth_tpu_torch.geometry import Camera
 from m4depth_tpu_torch.models.encoder import Conv3x3, leaky_relu
 from m4depth_tpu_torch.ops import (
     parallax_sweeping_cv_fused,
     spatial_cost_volume_fused,
+)
+from m4depth_tpu_torch.ops.glue import (
+    glue_assemble,
+    glue_assemble_fused,
+    glue_finish,
+    glue_finish_fused,
+    glue_prep,
+    glue_prep_fused,
 )
 from m4depth_tpu_torch.utils import tracing
 
@@ -49,18 +52,6 @@ class LevelEstimate(NamedTuple):
     depth: torch.Tensor     # [b, h_l, w_l, 1]
     parallax: torch.Tensor  # [b, h_l, w_l, 1]
     other: torch.Tensor     # [b, h_l, w_l, 4] inter-level memory
-
-
-def prep_features(f: torch.Tensor, num_cuts: int,
-                  normalize: bool) -> torch.Tensor:
-    """Per-cut L2 normalization of feature sub-vectors (float32 math)."""
-    if not normalize:
-        return f.contiguous()
-    b, h, w, c = f.shape
-    blocks = f.reshape(b, h, w, num_cuts, c // num_cuts).float()
-    sq = torch.sum(blocks * blocks, dim=-1, keepdim=True)
-    blocks = blocks * torch.rsqrt(torch.clamp(sq, min=1e-12))
-    return blocks.reshape(b, h, w, c).to(f.dtype)
 
 
 class DispRefiner(nn.Module):
@@ -122,26 +113,6 @@ class DecoderLevel(nn.Module):
             n += 1
         return n
 
-    def initial_deeper_estimate(self, like: torch.Tensor) -> LevelEstimate:
-        """Deepest-level stand-in for the absent deeper estimate: parallax
-        1, depth 1000, other 0."""
-        b, h, w, _ = like.shape
-        kw = dict(dtype=torch.float32, device=like.device)
-        return LevelEstimate(
-            depth=torch.full((b, h, w, 1), INIT_DEPTH, **kw),
-            parallax=torch.ones((b, h, w, 1), **kw),
-            other=torch.zeros((b, h, w, self.other_channels), **kw))
-
-    @staticmethod
-    def upsample_deeper(deeper: LevelEstimate, h: int, w: int
-                        ) -> LevelEstimate:
-        """The deeper estimate at this level's size (TFv1 bilinear grid,
-        parallax doubled)."""
-        return LevelEstimate(
-            depth=resize_bilinear_v1(deeper.depth, (h, w)),
-            parallax=resize_bilinear_v1(deeper.parallax, (h, w)) * 2.0,
-            other=resize_bilinear_v1(deeper.other, (h, w)))
-
     def forward(
         self,
         curr_f: torch.Tensor,
@@ -161,27 +132,40 @@ class DecoderLevel(nn.Module):
           state: the previous frame's memory, or None when this frame starts
             every sequence of the batch (a training window's frame 0): the
             level then returns the reset estimate and runs no cost volume.
+          camera: the full-resolution intrinsics (the level scales them by
+            ``2**level``).
           new_traj: [b] bool, per-element trajectory reset, or None when no
             element resets (training windows).
+
+        The glue around the cost volumes and the refiner (``ops/glue.py``)
+        runs as its plain PyTorch version while grad is enabled, and
+        through its fused wrappers (the kernels of ``ops/csrc/glue.cu`` on
+        CUDA tensors) while it is not; the counters
+        ``decoder.glue_plain`` and ``decoder.glue_fused`` count the calls.
         """
         cfg, abl = self.cfg, self.cfg.ablation
-        b, h, w, _ = curr_f.shape
         cuts = cfg.num_cuts(self.level)
-        cdt = cfg.torch_compute_dtype
+        fused = not torch.is_grad_enabled()
+        tracing.tally("decoder.glue_fused" if fused else "decoder.glue_plain")
+        prep, assemble, finish = (
+            (glue_prep_fused, glue_assemble_fused, glue_finish_fused) if fused
+            else (glue_prep, glue_assemble, glue_finish))
 
-        prev_l = (self.initial_deeper_estimate(curr_f) if deeper_est is None
-                  else self.upsample_deeper(deeper_est, h, w))
+        # at the deepest level the deeper estimate's stand-in is (1000, 1, 0)
+        prev, cam_l, curr_p, prev_p, para_prev_t = prep(
+            curr_f, deeper_est, state, trans, camera, 2.0 ** self.level, cuts,
+            abl.normalize_features, self.other_channels, INIT_DEPTH,
+            cfg.torch_cv_dtype)
+        prev_l = LevelEstimate(*prev)
         if state is None:
+            b, h, w, _ = curr_f.shape
             return prev_l, LevelState(
                 f_maps=curr_f,
                 depth=torch.full((b, h, w, 1), INIT_DEPTH,
                                  dtype=torch.float32, device=curr_f.device))
 
-        curr_p = prep_features(curr_f, cuts, abl.normalize_features)
-        prev_p = prep_features(state.f_maps, cuts, abl.normalize_features)
-        para_prev_t = prev_depth_to_parallax(state.depth, rot, trans, camera)
         dscv_args = (curr_p, prev_p, para_prev_t, prev_l.parallax, rot, trans,
-                     camera, cfg.search_range, cuts, cfg.torch_cv_dtype)
+                     cam_l, cfg.search_range, cuts, cfg.torch_cv_dtype)
         if cfg.remat and cfg.remat_policy == "dscv" and torch.is_grad_enabled():
             # the counterpart of the JAX package's jax.checkpoint of the DSCV
             # call: the backward runs the DSCV forward again (no random
@@ -191,44 +175,22 @@ class DecoderLevel(nn.Module):
                                          preserve_rng_state=False)
         else:
             cv, para_reproj = parallax_sweeping_cv_fused(*dscv_args)
-
-        def log_safe(x):
-            return torch.log(torch.clamp(x, min=1e-12))
-
-        # concatenation order is the reference's: cv (cut-major), log
-        # parallax, other, SNCV (offset-major), log warped parallax
-        inputs = [cv, log_safe(prev_l.parallax * self.lvl_mul)]
-        if abl.level_memory:
-            inputs.append(prev_l.other)
-        if abl.sncv:
-            inputs.append(spatial_cost_volume_fused(
-                curr_p, curr_p, cfg.sncv_search_range, cuts,
-                cfg.torch_cv_dtype, cfg.leaky_slope))
-        if abl.time_recurr:
-            inputs.append(log_safe(para_reproj * self.lvl_mul))
-        f_input = torch.cat([x.to(cdt) for x in inputs], dim=-1)
+        sncv = (spatial_cost_volume_fused(curr_p, curr_p,
+                                          cfg.sncv_search_range, cuts,
+                                          cfg.torch_cv_dtype, cfg.leaky_slope)
+                if abl.sncv else None)
+        f_input = assemble(
+            cv, prev_l.parallax, prev_l.other if abl.level_memory else None,
+            sncv, para_reproj if abl.time_recurr else None, self.lvl_mul,
+            cfg.torch_compute_dtype)
 
         tracing.mark(f"refiner{self.level}", f_input.device)
-        out = self.refiner(f_input).float()
+        out = self.refiner(f_input)
         tracing.mark(f"glue{self.level}", f_input.device)
-        parallax = torch.exp(torch.clamp(out[..., :1], -7.0, 7.0)) / self.lvl_mul
-        depth = parallax_to_depth(parallax, rot, trans, camera)
-
         # the feature memory is not detached: the gradient of the next
         # frame's c2 reaches this frame's encoder (the depth memory is
-        # detached by prev_depth_to_parallax)
-        est = LevelEstimate(depth=depth, parallax=parallax,
-                            other=out[..., 1:])
-        if new_traj is None:
-            return est, LevelState(f_maps=curr_f, depth=depth)
-        mask = new_traj.reshape(b, 1, 1, 1)
-        est = LevelEstimate(
-            depth=torch.where(mask, prev_l.depth, depth),
-            parallax=torch.where(mask, prev_l.parallax, parallax),
-            other=torch.where(mask, prev_l.other, est.other))
-        # on a reset the feature memory is curr_f either way; only the depth
-        # memory is masked
-        new_state = LevelState(
-            f_maps=curr_f,
-            depth=torch.where(mask, torch.full_like(depth, INIT_DEPTH), depth))
-        return est, new_state
+        # detached by prev_depth_to_parallax); on a reset the estimate is
+        # the deeper one's and the depth memory starts again from 1000
+        est, depth = finish(out, prev_l, new_traj, rot, trans, cam_l,
+                            self.lvl_mul, INIT_DEPTH)
+        return LevelEstimate(*est), LevelState(f_maps=curr_f, depth=depth)

@@ -14,7 +14,7 @@ from torch.utils.checkpoint import checkpoint
 
 from m4depth_tpu_torch import resolve_device
 from m4depth_tpu_torch.config import ModelConfig
-from m4depth_tpu_torch.geometry import Camera, resize_nearest, scale_camera
+from m4depth_tpu_torch.geometry import Camera, resize_nearest
 from m4depth_tpu_torch.losses import m4depth_loss
 from m4depth_tpu_torch.models.decoder import (
     INIT_DEPTH,
@@ -107,9 +107,8 @@ class M4Depth(nn.Module):
         remat = (self.cfg.remat and self.cfg.remat_policy == "all"
                  and torch.is_grad_enabled())
         for idx in reversed(range(num_levels)):
-            cam_l = scale_camera(camera, 2.0 ** (idx + 1))
             args = (f_pyr[idx], deeper, None if first else state[idx], rot,
-                    trans, cam_l, new_traj)
+                    trans, camera, new_traj)
             if remat:
                 # the model draws no random numbers: nothing to restore
                 # (and a CUDA graph's capture refuses the RNG's state)

@@ -1,6 +1,6 @@
-"""Cost volumes and warping: CUDA kernels on CUDA tensors, plain PyTorch
-versions on CPU tensors. Importing builds nothing; a kernel is compiled at
-its first launch."""
+"""Cost volumes, warping and the decoder's glue: CUDA kernels on CUDA
+tensors, plain PyTorch versions on CPU tensors. Importing builds nothing; a
+kernel is compiled at its first launch."""
 
 from m4depth_tpu_torch.ops.cost_volume import (
     DSCV_BACKWARD_KERNEL,
@@ -8,6 +8,11 @@ from m4depth_tpu_torch.ops.cost_volume import (
     DSCVFunction,
     parallax_sweeping_cv,
     parallax_sweeping_cv_fused,
+)
+from m4depth_tpu_torch.ops.glue import (
+    GLUE_ASSEMBLE_KERNEL,
+    GLUE_FINISH_KERNEL,
+    GLUE_PREP_KERNEL,
 )
 from m4depth_tpu_torch.ops.sncv import (
     SNCV_BACKWARD_KERNEL,
@@ -18,13 +23,16 @@ from m4depth_tpu_torch.ops.sncv import (
 )
 from m4depth_tpu_torch.ops.warp import dense_image_warp
 
-# every kernel of the port, by its C entry point
-KERNELS = {k.symbol: k for k in (SNCV_KERNEL, DSCV_KERNEL,
-                                 SNCV_BACKWARD_KERNEL, DSCV_BACKWARD_KERNEL)}
+# the hand-written kernels by their C entry points: the cost volumes', then
+# the decoder glue's
+KERNELS = {k.symbol: k for k in (
+    SNCV_KERNEL, DSCV_KERNEL, SNCV_BACKWARD_KERNEL, DSCV_BACKWARD_KERNEL,
+    GLUE_PREP_KERNEL, GLUE_ASSEMBLE_KERNEL, GLUE_FINISH_KERNEL)}
 
 __all__ = [
-    "DSCVFunction", "DSCV_BACKWARD_KERNEL", "DSCV_KERNEL", "KERNELS",
-    "SNCVFunction", "SNCV_BACKWARD_KERNEL", "SNCV_KERNEL", "dense_image_warp",
-    "parallax_sweeping_cv", "parallax_sweeping_cv_fused",
+    "DSCVFunction", "DSCV_BACKWARD_KERNEL", "DSCV_KERNEL",
+    "GLUE_ASSEMBLE_KERNEL", "GLUE_FINISH_KERNEL", "GLUE_PREP_KERNEL",
+    "KERNELS", "SNCVFunction", "SNCV_BACKWARD_KERNEL", "SNCV_KERNEL",
+    "dense_image_warp", "parallax_sweeping_cv", "parallax_sweeping_cv_fused",
     "spatial_cost_volume", "spatial_cost_volume_fused",
 ]

@@ -150,60 +150,6 @@ constexpr int kMaxPixelThreads = 512;
 constexpr int kMaxSlices = 8;
 constexpr long long kWaveThreads = 96 * 1024;
 
-// Row-major rotation matrix of a small-angle vector (rot_dim 3) or a unit
-// (w, x, y, z) quaternion (rot_dim 4), as geometry/rotations.py builds it.
-__device__ __forceinline__ void rot_mat(const float* q, int rot_dim,
-                                        float* R) {
-  if (rot_dim == 3) {
-    const float x = q[0], y = q[1], z = q[2];
-    R[0] = 1.f; R[1] = -z;  R[2] = y;
-    R[3] = z;   R[4] = 1.f; R[5] = -x;
-    R[6] = -y;  R[7] = x;   R[8] = 1.f;
-    return;
-  }
-  // R = (w^2 - v.v) I + 2 v v^T + 2 w [v]x
-  const float w = q[0], x = q[1], y = q[2], z = q[3];
-  const float s = w * w - (x * x + y * y + z * z);
-  R[0] = s + 2.f * x * x;         R[1] = 2.f * x * y - 2.f * w * z;
-  R[2] = 2.f * x * z + 2.f * w * y;
-  R[3] = 2.f * y * x + 2.f * w * z; R[4] = s + 2.f * y * y;
-  R[5] = 2.f * y * z - 2.f * w * x;
-  R[6] = 2.f * z * x - 2.f * w * y; R[7] = 2.f * z * y + 2.f * w * x;
-  R[8] = s + 2.f * z * z;
-}
-
-// The epipolar terms of pixel (x, y) of image bi (geometry/parallax.py
-// epipolar_terms): proj = (px, py), delta = (dx, dy), rho clipped below at
-// 1e-12 = den, and the pixel centre relative to c = (mx, my).
-struct Epipolar {
-  float px, py, dx, dy, den, mx, my;
-};
-
-__device__ __forceinline__ Epipolar epipolar(
-    const float* __restrict__ rot, const float* __restrict__ trans,
-    const float* __restrict__ focal, const float* __restrict__ principal,
-    long long bi, int rot_dim, int x, int y) {
-  float R[9];
-  rot_mat(rot + bi * rot_dim, rot_dim, R);
-  const float fx = focal[2 * bi], fy = focal[2 * bi + 1];
-  const float cx = principal[2 * bi], cy = principal[2 * bi + 1];
-  const float tx = trans[3 * bi], ty = trans[3 * bi + 1];
-  const float tz = trans[3 * bi + 2];
-  Epipolar e;
-  e.mx = ((float)x + 0.5f) - cx;
-  e.my = ((float)y + 0.5f) - cy;
-  const float hx = e.mx / fx, hy = e.my / fy;
-  const float rx = R[0] * hx + R[1] * hy + R[2];
-  const float ry = R[3] * hx + R[4] * hy + R[5];
-  const float rz = R[6] * hx + R[7] * hy + R[8];
-  e.px = rx * fx / rz;
-  e.py = ry * fy / rz;
-  e.dx = tx * fx - tz * e.px;
-  e.dy = ty * fy - tz * e.py;
-  e.den = fmaxf(sqrtf(e.dx * e.dx + e.dy * e.dy), 1e-12f);
-  return e;
-}
-
 // Where hypothesis k of pixel (x, y) samples, and the gates of the clips
 // on its way there (for the backward: torch.clamp passes a gradient where
 // min <= x <= max).

@@ -58,6 +58,18 @@ BF16_DEPTH_MEDIAN_RTOL, BF16_DEPTH_P99_RTOL = 2.0 ** -6, 2.0 ** -3
 # arithmetic per pixel, sums and means in other orders.
 EVAL_METRIC_TOL = dict(rtol=1e-5, atol=1e-6)
 
+# The decoder glue's kernels (ops/csrc/glue.cu) against their plain versions
+# (ops/glue.py) on the card. Both compute in float32 with the same roundings
+# at the same points, but the kernels sum a cut's squares in another order
+# than ATen's reduction and take the depth's epipolar terms from the DSCV
+# kernels' (contracted into FMAs), so float32 results differ by a few
+# float32 ulps (SNCV_TOL holds them), and where such a difference straddles
+# a rounding boundary an output rounded to bfloat16 or float16 differs by
+# one ulp (GLUE_ULPS, ``assert_within_ulps``) of the coarsest dtype it was
+# rounded to: features of bfloat16 convs rounded on to float16 cost
+# volumes keep bfloat16's spacing (one bfloat16 ulp is 8 of float16).
+GLUE_ULPS = 1
+
 # Backward kernels against autograd of the plain forward, as (rtol, atol as
 # a fraction of the largest reference value).
 #   float32: the same products summed in another order, the DSCV's dc2 and
@@ -150,6 +162,34 @@ def assert_bf16_depth_close(got: torch.Tensor, want: torch.Tensor,
              f"{what}: relative error median {med:.3e}, 99th percentile "
              f"{p99:.3e}")
     return med, p99
+
+
+def ulps(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """The spacing of ``dtype``'s values at each value of ``x``, as
+    float32 (the subnormal spacing at and below the smallest normal)."""
+    fi = torch.finfo(dtype)
+    mag = x.float().abs()
+    _, exp = torch.frexp(mag)
+    spacing = fi.eps * torch.pow(2.0, (exp - 1).float())
+    return torch.where(mag < fi.tiny, fi.tiny * fi.eps, spacing)
+
+
+def assert_within_ulps(got: torch.Tensor, want: torch.Tensor, what: str,
+                       n: int = GLUE_ULPS,
+                       spacing_dtype: Optional[torch.dtype] = None) -> float:
+    """``got`` and ``want`` of one dtype within ``n`` ulps of
+    ``spacing_dtype`` (by default theirs) at each value (the larger spacing
+    of the two, where they straddle a power of two); returns the largest
+    difference in ulps."""
+    _require(got.dtype == want.dtype and got.shape == want.shape,
+             f"{what}: {got.dtype} {tuple(got.shape)} against {want.dtype} "
+             f"{tuple(want.shape)}")
+    _require(bool(torch.isfinite(want).all()), f"{what}: reference not finite")
+    dt = spacing_dtype or got.dtype
+    spacing = torch.maximum(ulps(got, dt), ulps(want, dt))
+    err = ((got.float() - want.float()).abs() / spacing).max().item()
+    _require(err <= n, f"{what}: {err:.2f} ulps apart (at most {n})")
+    return err
 
 
 def assert_grad_close(got: torch.Tensor, ref: torch.Tensor,

@@ -151,7 +151,11 @@ def print_breakdown(r: dict, unit: str) -> None:
 
 def print_dispatch(d: dict, unit: str) -> None:
     """The host's time in the compiled call a ``unit``, and the warm-up's
-    and the capture's (``dispatch``)."""
+    and the capture's, and the decoder levels by their glue
+    (``dispatch``)."""
+    print(f"decoder levels by their glue (counted in Python: the eager first "
+          f"call and the capture): kernels {d['glue_fused']}, plain "
+          f"{d['glue_plain']}")
     if d.get("ns") is None:
         print("host time in the compiled call: no replay timed")
         return
@@ -171,12 +175,18 @@ def dispatch(start: dict, before: dict, after: dict,
     counter's mean host time a timed replay, by part, the mean
     ``compiled.warmups`` and ``compiled.captures`` call since the start,
     and with ``entry`` that counter's mean timed call (us; None where no
-    such call ran)."""
+    such call ran); and the decoder levels that ran the glue's kernels
+    (``decoder.glue_fused``) and its plain version (``decoder.glue_plain``)
+    since the start."""
     out = {key: tracing.mean_us(after, "compiled.replays", before, key)
            for key in ("ns", "prepare_ns", "launch_ns", "finish_ns")}
     out.update(warm_up=tracing.mean_us(after, "compiled.warmups", start),
                capture=tracing.mean_us(after, "compiled.captures", start),
                entry=entry and tracing.mean_us(after, entry, before))
+    for kind in ("fused", "plain"):
+        name = f"decoder.glue_{kind}"
+        out[f"glue_{kind}"] = (after.get(name, {}).get("calls", 0)
+                               - start.get(name, {}).get("calls", 0))
     return out
 
 

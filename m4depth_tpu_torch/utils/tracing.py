@@ -42,6 +42,10 @@ device work (the profiler also draws such a range on the device timeline).
 (the launch counts, the copies out); ``compiled.warmups`` and
 ``compiled.captures`` count the calls that ran eagerly and those that
 captured (and replayed once), so neither enters a replay's mean.
+``decoder.glue_fused`` and ``decoder.glue_plain`` (``tally``, untimed)
+count ``DecoderLevel`` calls by the glue they ran: its kernels (grad
+disabled) or its plain version. They count in Python, so a captured
+graph counts its levels once, at its capture, and a replay none.
 """
 
 from __future__ import annotations
@@ -152,6 +156,11 @@ def count(name: str, since: int) -> None:
     """One call of ``name`` that started at ``since`` (``clock()``) and
     ends now."""
     COUNTERS.add(name, clock() - since)
+
+
+def tally(name: str) -> None:
+    """One call of ``name``, untimed."""
+    COUNTERS.add(name, 0)
 
 
 def count_replay(t0: int, t1: int, t2: int) -> None:

@@ -25,6 +25,9 @@ from m4depth_tpu_torch.models import M4Depth, init_state
 from m4depth_tpu_torch.ops import (
     DSCV_BACKWARD_KERNEL,
     DSCV_KERNEL,
+    GLUE_ASSEMBLE_KERNEL,
+    GLUE_FINISH_KERNEL,
+    GLUE_PREP_KERNEL,
     SNCV_BACKWARD_KERNEL,
     SNCV_KERNEL,
     parallax_sweeping_cv,
@@ -32,6 +35,8 @@ from m4depth_tpu_torch.ops import (
     spatial_cost_volume,
     spatial_cost_volume_fused,
 )
+from m4depth_tpu_torch.ops import glue
+from m4depth_tpu_torch.ops.cost_volume import round_parallax
 from m4depth_tpu_torch.ops.sncv import KERNEL_DTYPES, _sncv_backward
 from m4depth_tpu_torch.testing import (
     DSCV_CV_TOL,
@@ -40,9 +45,11 @@ from m4depth_tpu_torch.testing import (
     SNCV_TOL,
     STEP_LOSS_RTOL,
     V1_SNCV_EDGE_SHAPES,
+    assert_bf16_depth_close,
     assert_dscv_grads_close,
     assert_sncv_grads_close,
     assert_train_step_close,
+    assert_within_ulps,
     sncv_plain_grads,
     tie_free_pixels,
 )
@@ -966,3 +973,304 @@ def test_replayed_train_step_holds_the_stage_marks_in_order(cuda, remat):
     want = (["encoder", "glue"] + 2 * _frame_stages(4)
             + ["loss", "backward", "optimizer", "metrics", "end"])
     _check_marked_replay(lambda: step(batch), want)
+
+
+# -- the decoder's glue kernels (ops/csrc/glue.cu) ----------------------------
+
+# d6's levels as (b, level, h, w, C, cuts), finest first, at b=1 and b=3,
+# and a 7x7 level (its deeper one 4x4: a resize scale of 4/7)
+GLUE_SHAPES = [(b, i + 1, h, w, C, cuts) for b in (1, 3)
+               for i, (h, w, C, cuts) in enumerate(D6_LEVELS)] + [
+                   (2, 3, 7, 7, 64, 2)]
+GLUE_IDS = [f"b{b}-level{lv}-{h}x{w}" for b, lv, h, w, _, _ in GLUE_SHAPES]
+GLUE_OTHER = 4
+GLUE_KERNELS = (GLUE_PREP_KERNEL, GLUE_ASSEMBLE_KERNEL, GLUE_FINISH_KERNEL)
+
+
+def _glue_inputs(b, level, h, w, C, rot_dim, dev, deepest, seed=0,
+                 dtype=torch.bfloat16):
+    """(curr_f, deeper (None at the deepest level), state, rot, trans,
+    full-resolution camera, new_traj) for a level, mostly lateral motion
+    (a well-conditioned depth); new_traj resets every other element from
+    the second."""
+    rng = np.random.RandomState(seed)
+
+    def t(x):
+        return torch.from_numpy(np.asarray(x, np.float32)).to(dev)
+
+    curr_f = t(rng.randn(b, h, w, C)).to(dtype)
+    deeper = None
+    if not deepest:
+        hd, wd = -(-h // 2), -(-w // 2)
+        deeper = (t(rng.uniform(2, 40, (b, hd, wd, 1))),
+                  t(rng.uniform(0.1, 3, (b, hd, wd, 1))),
+                  t(rng.randn(b, hd, wd, GLUE_OTHER)))
+    state = (t(rng.randn(b, h, w, C)).to(dtype),
+             t(rng.uniform(2, 40, (b, h, w, 1))))
+    if rot_dim == 3:
+        rot = t(rng.randn(b, 3) * 0.01)
+    else:
+        q = np.concatenate([np.ones((b, 1)), rng.randn(b, 3) * 0.01], 1)
+        rot = t(q / np.linalg.norm(q, axis=1, keepdims=True))
+    trans = t(np.array([0.3, 0.1, 0.02]) + rng.randn(b, 3) * 0.01)
+    full = 2.0 ** level
+    f = t(np.tile([[w * full * 0.6, h * full * 0.7]], (b, 1)))
+    c = t(np.tile([[w * full / 2 + 0.3, h * full / 2 - 0.2]], (b, 1)))
+    new_traj = torch.arange(b, device=dev) % 2 == 1
+    return curr_f, deeper, state, rot, trans, Camera(f, c), new_traj
+
+
+def _close_f32(got, want, what):
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert g.dtype == torch.float32 and g.shape == w.shape, (what, i)
+        torch.testing.assert_close(g, w, **SNCV_TOL, msg=f"{what}[{i}]")
+
+
+@pytest.mark.parametrize("rot_dim", [3, 4])
+@pytest.mark.parametrize("cv_dtype", [torch.bfloat16, torch.float16],
+                         ids=["bf16", "f16"])
+@pytest.mark.parametrize("shape", GLUE_SHAPES, ids=GLUE_IDS)
+def test_glue_kernels_match_plain(cuda, shape, cv_dtype, rot_dim):
+    """Each glue kernel against its plain version on the same inputs, with
+    bfloat16 convs: the deeper estimate, the intrinsics, the parallax, the
+    depth and the memory (float32) to SNCV_TOL; the features, the previous
+    parallax and the refiner's input (bfloat16 or float16) within one ulp.
+    The refiner's input's parallax channels meet the 1e-12 clamp."""
+    b, level, h, w, C, cuts = shape
+    deepest = level == len(D6_LEVELS)
+    curr_f, deeper, state, rot, trans, cam, new_traj = _glue_inputs(
+        b, level, h, w, C, rot_dim, cuda, deepest)
+    lvl_mul = 2.0 ** (level - 3)
+    before = [k.launches for k in GLUE_KERNELS]
+    args = (curr_f, deeper, state, trans, cam, 2.0 ** level, cuts, True,
+            GLUE_OTHER, 1000.0, cv_dtype)
+    got, want = glue.glue_prep_fused(*args), glue.glue_prep(*args)
+    _close_f32(got[0], want[0], "prev")
+    assert all(torch.equal(g, w) for g, w in zip(got[1], want[1]))
+    # features rounded to the convs' bfloat16, then to the cost volumes'
+    coarse = max((torch.bfloat16, cv_dtype), key=lambda d: torch.finfo(d).eps)
+    assert_within_ulps(got[2], want[2].to(cv_dtype), "curr_p",
+                       spacing_dtype=coarse)
+    assert_within_ulps(got[3], want[3].to(cv_dtype), "prev_p",
+                       spacing_dtype=coarse)
+    assert_within_ulps(got[4], round_parallax(want[4], cv_dtype), "para")
+
+    rng = np.random.RandomState(1)
+    cv = torch.from_numpy(rng.randn(b, h, w, 9 * cuts).astype(np.float32))
+    sncv = torch.from_numpy(rng.randn(b, h, w, 49 * cuts).astype(np.float32))
+    reproj = torch.from_numpy(rng.uniform(0, 5, (b, h, w, 1)).astype(
+        np.float32))
+    reproj[:, ::3] = 0.0
+    cv, sncv, reproj = (x.to(cuda) for x in (cv, sncv, reproj))
+    prev = want[0]
+    args = (cv, prev[1], prev[2], sncv, reproj, lvl_mul, torch.bfloat16)
+    f_input = glue.glue_assemble_fused(*args)
+    assert f_input.shape == (b, h, w, 9 * cuts + 1 + GLUE_OTHER + 49 * cuts
+                             + 1)
+    assert_within_ulps(f_input, glue.glue_assemble(*args), "f_input")
+
+    out = torch.from_numpy(rng.randn(b, h, w, 1 + GLUE_OTHER).astype(
+        np.float32) * 3).to(cuda, torch.bfloat16)
+    args = (out, prev, new_traj, rot, trans, want[1], lvl_mul, 1000.0)
+    (est, depth), (west, wdepth) = (glue.glue_finish_fused(*args),
+                                    glue.glue_finish(*args))
+    _close_f32(tuple(est) + (depth,), tuple(west) + (wdepth,), "finish")
+    torch.cuda.synchronize()
+    assert [k.launches - n for k, n in zip(GLUE_KERNELS,
+                                           before)] == [1, 1, 1]
+
+
+@pytest.mark.parametrize("deepest", [True, False], ids=["deepest", "inner"])
+def test_glue_kernels_take_every_flag(cuda, deepest):
+    """The 7x7 level with float32 convs and cost volumes, the features
+    copied (normalize_features off), the memory, the SNCV and the warped
+    parallax left out of the refiner's input, no state (a window's first
+    frame) and no reset: each kernel against its plain version."""
+    b, level, h, w, C, cuts = GLUE_SHAPES[-1]
+    curr_f, deeper, state, rot, trans, cam, _ = _glue_inputs(
+        b, level, h, w, C, 4, cuda, deepest, seed=3, dtype=torch.float32)
+    f32 = torch.float32
+    for st in (state, None):
+        args = (curr_f, deeper, st, trans, cam, 2.0 ** level, cuts, False,
+                GLUE_OTHER, 1000.0, f32)
+        got, want = glue.glue_prep_fused(*args), glue.glue_prep(*args)
+        _close_f32(got[0], want[0], "prev")
+        if st is None:
+            assert got[2] is got[3] is got[4] is None
+        else:
+            assert torch.equal(got[2], want[2])
+            assert torch.equal(got[3], want[3])
+            _close_f32((got[4],), (want[4],), "para")
+    prev = want[0]
+    cv = torch.randn(b, h, w, 9 * cuts, device=cuda)
+    reproj = torch.rand(b, h, w, 1, device=cuda)
+    for memory, recurr in ((False, True), (True, False), (False, False)):
+        args = (cv, prev[1], prev[2] if memory else None, None,
+                reproj if recurr else None, 0.5, f32)
+        f_input = glue.glue_assemble_fused(*args)
+        assert f_input.shape[3] == 9 * cuts + 1 + memory * GLUE_OTHER + recurr
+        _close_f32((f_input,), (glue.glue_assemble(*args),), "f_input")
+    out = torch.randn(b, h, w, 1 + GLUE_OTHER, device=cuda)
+    args = (out, prev, None, rot, trans, want[1], 0.5, 1000.0)
+    (est, depth), (west, wdepth) = (glue.glue_finish_fused(*args),
+                                    glue.glue_finish(*args))
+    assert depth is est[0]
+    _close_f32(tuple(est), tuple(west), "finish")
+
+
+def test_glue_wrappers_raise_on_inputs_that_require_grad(cuda):
+    """A CUDA input that requires grad makes each fused wrapper raise: the
+    kernels have no backward, and nothing falls back to the plain
+    version."""
+    b, level, h, w, C, cuts = GLUE_SHAPES[-1]
+    curr_f, deeper, state, rot, trans, cam, new_traj = _glue_inputs(
+        b, level, h, w, C, 4, cuda, False)
+    with pytest.raises(ValueError, match="no backward"):
+        glue.glue_prep_fused(curr_f.float().requires_grad_(), deeper, state,
+                             trans, cam, 2.0 ** level, cuts, True, GLUE_OTHER,
+                             1000.0, torch.bfloat16)
+    prev, cam_l, _, _, _ = glue.glue_prep_fused(
+        curr_f, deeper, state, trans, cam, 2.0 ** level, cuts, True,
+        GLUE_OTHER, 1000.0, torch.bfloat16)
+    cv = torch.randn(b, h, w, 9 * cuts, device=cuda, requires_grad=True)
+    with pytest.raises(ValueError, match="no backward"):
+        glue.glue_assemble_fused(cv, prev[1], prev[2], None, prev[1], 1.0,
+                                 torch.bfloat16)
+    out = torch.randn(b, h, w, 1 + GLUE_OTHER, device=cuda,
+                      requires_grad=True)
+    with pytest.raises(ValueError, match="no backward"):
+        glue.glue_finish_fused(out, prev, new_traj, rot, trans, cam_l, 1.0,
+                               1000.0)
+
+
+@contextlib.contextmanager
+def plain_glue():
+    """The decoder runs the plain glue in place of the fused wrappers, on
+    any device and in any grad mode."""
+    from m4depth_tpu_torch.models import decoder
+
+    names = ("glue_prep_fused", "glue_assemble_fused", "glue_finish_fused")
+    saved = [getattr(decoder, n) for n in names]
+    for n in names:
+        setattr(decoder, n, getattr(glue, n[:-len("_fused")]))
+    try:
+        yield
+    finally:
+        for n, fn in zip(names, saved):
+            setattr(decoder, n, fn)
+
+
+D6_BF16 = dict(compute_dtype="bfloat16")
+
+
+@pytest.mark.parametrize("widths,hw,b",
+                         [(D4_NARROW, 64, 2), (D6_BF16, 384, 1)],
+                         ids=["d4-float32-64", "d6-bf16-384"])
+def test_no_grad_frame_with_fused_glue_matches_plain(cuda, widths, hw, b):
+    """``M4Depth.step`` with the glue kernels against the same step with
+    the plain glue, three frames with resets: float32 to MODEL_TOL,
+    bfloat16 convs by the bfloat16 depth rule. Each glue kernel launches
+    once a level a frame."""
+    cfg = ModelConfig(**widths)
+    model = M4Depth(cfg, device=cuda, seed=2)
+    states = [init_state(cfg, b, hw, hw, device=cuda) for _ in range(2)]
+    for t in range(3):
+        rgb, rot, trans, f = (torch.from_numpy(x).to(cuda)
+                              for x in _graph_frames(b, hw, t, seed=15))
+        args = (rgb, rot, trans, Camera(f, f.clone()),
+                torch.arange(b, device=cuda) % 2 == t % 2)
+        before = [k.launches for k in GLUE_KERNELS]
+        states[0], got = model.step(states[0], *args)
+        torch.cuda.synchronize()
+        assert [k.launches - n for k, n in zip(GLUE_KERNELS,
+                                               before)] == [cfg.num_levels] * 3
+        with plain_glue():
+            states[1], want = model.step(states[1], *args)
+        if cfg.compute_dtype == "float32":
+            torch.testing.assert_close(got, want, **MODEL_TOL)
+        else:
+            assert_bf16_depth_close(got, want, f"frame {t}")
+
+
+def test_trajectory_with_fused_glue_matches_plain(cuda):
+    """64 frames of d6 at 384x384, bfloat16 convs, with a reset at frames
+    0 and 32: the glue kernels' recurrent state against the plain glue's,
+    each frame's depth by the bfloat16 depth rule."""
+    cfg = ModelConfig(**D6_BF16)
+    model = M4Depth(cfg, device=cuda, seed=3)
+    hw, frames = 384, 64
+    rgb, rot, trans, f = (torch.from_numpy(x).to(cuda)
+                          for x in _stream_frames(1, hw, frames, seed=16))
+    cam = Camera(f, f.clone())
+    states = [init_state(cfg, 1, hw, hw, device=cuda) for _ in range(2)]
+    worst = (0.0, 0.0)
+    for t in range(frames):
+        reset = torch.tensor([t % 32 == 0], device=cuda)
+        states[0], got = model.step(states[0], rgb[t], rot, trans, cam, reset)
+        with plain_glue():
+            states[1], want = model.step(states[1], rgb[t], rot, trans, cam,
+                                         reset)
+        err = assert_bf16_depth_close(got, want, f"frame {t}")
+        worst = tuple(map(max, worst, err))
+    print(f"worst median, 99th percentile relative error: {worst}")
+
+
+def _glue_calls(before, after):
+    return tuple(after.get(k, {}).get("calls", 0)
+                 - before.get(k, {}).get("calls", 0)
+                 for k in ("decoder.glue_fused", "decoder.glue_plain"))
+
+
+def test_compiled_d6_frame_replays_its_glue_kernels(cuda):
+    """The compiled d6 frame (bfloat16 convs, 128x128) with the glue
+    kernels: each replay equals the eager ``M4Depth.step`` bit for bit;
+    its levels count as fused at the eager first call and at the capture
+    (``decoder.glue_fused`` 6, ``decoder.glue_plain`` 0) and not at a
+    replay, and each glue kernel runs once a level every call."""
+    from m4depth_tpu_torch.parallel import compile_step
+    from m4depth_tpu_torch.utils import tracing
+
+    cfg = ModelConfig(**D6_BF16)
+    hw = 128
+    model = M4Depth(cfg, device=cuda, seed=5)
+    step = compile_step(model)
+    state = init_state(cfg, 1, hw, hw, device=cuda)
+    eager = init_state(cfg, 1, hw, hw, device=cuda)
+    for t in range(5):
+        rgb, rot, trans, f = (torch.from_numpy(x).to(cuda)
+                              for x in _graph_frames(1, hw, t, seed=17))
+        cam = Camera(f, f.clone())
+        reset = torch.tensor([t in (0, 3)], device=cuda)
+        before = tracing.counters()
+        launches = [k.launches for k in GLUE_KERNELS]
+        state, depth = step(state, rgb, rot, trans, cam, reset)
+        torch.cuda.synchronize()
+        assert _glue_calls(before, tracing.counters()) == (
+            (6, 0) if t < 2 else (0, 0)), t
+        assert [k.launches - n for k, n in zip(GLUE_KERNELS,
+                                               launches)] == [6] * 3, t
+        eager, want = model.step(eager, rgb, rot, trans, cam, reset)
+        assert torch.equal(depth, want), t
+    assert step.graphs == 1
+
+
+def test_compiled_train_step_runs_the_plain_glue(cuda):
+    """The compiled train step runs with grad: its levels count as plain
+    (one a level and frame at the eager first call and at the capture),
+    none as fused, and no glue kernel launches."""
+    from m4depth_tpu_torch.train.step import compile_train_step
+    from m4depth_tpu_torch.utils import tracing
+
+    cfg = ModelConfig(**D4_NARROW)
+    model = M4Depth(cfg, device=cuda, seed=8)
+    step = compile_train_step(model, make_optimizer(
+        model, TrainConfig(learning_rate=1e-4)))
+    batch = train_batch_on(cuda, b=2, T=3, hw=64, seed=7)
+    launches = [k.launches for k in GLUE_KERNELS]
+    for i in range(3):
+        before = tracing.counters()
+        step(batch)
+        torch.cuda.synchronize()
+        assert _glue_calls(before, tracing.counters()) == (
+            (0, 3 * 4) if i < 2 else (0, 0)), i
+    assert [k.launches for k in GLUE_KERNELS] == launches
