@@ -40,8 +40,9 @@ exits non-zero and prints no result line:
    b=3, T=4, bfloat16 compute and cost volumes, Adam at 1e-4, on a seeded
    batch; ms/step over timed blocks, peak memory, each step's loss, and
    each kernel's launches (18 per step of each of the four cost-volume
-   kernels, none of the glue's); then a profiler window over training
-   steps;
+   kernels, of glue_assemble, glue_finish and the glue's three backward
+   kernels, 24 of glue_prep: ``m4depth_launches``); then a profiler
+   window over training steps;
 9. each forward kernel's device time at each level shape (b=1, serving),
    beside its plain version's time and its bound, and the DSCV forward's
    time on the inputs one serving frame gave it; then V1's SNCV forward;
@@ -135,13 +136,23 @@ exits non-zero and prints no result line:
    its plain version (``ops/glue.py``) on the same inputs at the six level
    shapes of d6 at 384x384 (b=1, bf16 convs and cost volumes): float32
    outputs to ``SNCV_TOL``, bfloat16 ones within one ulp; then each
-   kernel's device time beside its plain version's and its bound. The
-   launch checks of every phase count these kernels too: once a level
-   where an M4Depth level runs without grad (serving, evaluation), never
-   in training;
+   kernel's device time beside its plain version's and its bound. Their
+   three backward kernels (``ops/csrc/glue_backward.cu``) against their
+   plain versions at the six level shapes with b=3, in float32 and
+   bfloat16 (``testing.GLUE_BWD_TOL``), each timed directly and through
+   autograd beside its plain version and its bound; one training step's
+   glue (24 glue_prep, 18 of the others) replayed in a CUDA graph, plain
+   and through the kernels, forward and backward apart; compiled float32
+   d6 steps with the kernels against eager steps with the plain glue
+   (``testing.assert_glue_steps_close``), without remat and with each
+   policy. The launch checks of every phase count these kernels too:
+   once a level where an M4Depth level runs its cost volumes (glue_prep
+   on every frame), with grad or without, and each backward once where
+   the cost volumes' backwards run;
 22. one JSON line listing the kernels (the four cost-volume kernels, their
-   float16 instantiations, then the three glue kernels), then the result
-   line ``{"ok": true, "device": {...}}``.
+   float16 instantiations, then the glue's three kernels and their three
+   backward kernels), then the result line ``{"ok": true, "device":
+   {...}}``.
 
 Without a CUDA device it exits with code 2 before running anything.
 """
@@ -191,18 +202,22 @@ from m4depth_tpu_torch.testing import (
     DSCV_CV_TOL,
     DSCV_PARA_TOL,
     EVAL_METRIC_TOL,
+    GLUE_BWD_TOL,
     MODEL_TOL,
     SNCV_TOL,
     STEP_LOSS_RTOL,
     V1_SNCV_EDGE_SHAPES,
     assert_bf16_depth_close,
     assert_dscv_grads_close,
+    assert_glue_steps_close,
+    assert_grad_close,
     assert_sncv_grads_close,
     assert_step_close,
     assert_train_step_close,
     assert_within_ulps,
     float32_step,
     max_abs_err,
+    plain_glue,
     sncv_plain_grads,
     tie_free_pixels,
     train_batch,
@@ -212,10 +227,14 @@ from m4depth_tpu_torch.utils.profiling import compiled_cost
 
 FORWARD = ("sncv_forward", "dscv_forward")
 BACKWARD = ("sncv_backward", "dscv_backward")
-# the decoder glue's kernels (ops/csrc/glue.cu): an M4Depth level without
-# grad (serving, evaluation) launches each once where it launches the two
-# forward kernels; with grad (training) the glue is plain PyTorch
+# the decoder glue's kernels (ops/csrc/glue.cu): an M4Depth level launches
+# glue_prep on every frame and the other two where it launches the two
+# forward kernels, with grad or without; their backward kernels
+# (ops/csrc/glue_backward.cu) where the training step runs the cost
+# volumes' backward kernels
 GLUE = ("glue_prep", "glue_assemble", "glue_finish")
+GLUE_BACKWARD = ("glue_prep_backward", "glue_assemble_backward",
+                 "glue_finish_backward")
 SERVING = FORWARD + GLUE
 
 # H100 SXM published peaks: HBM3 bandwidth, and float32 outside the tensor
@@ -279,6 +298,27 @@ def gpu_name_and_power_limit() -> str:
 
 
 # -- phase 1 ----------------------------------------------------------------
+
+
+def m4depth_launches(T: int, levels: int = 6, train: bool = True,
+                     remat: str = "") -> dict:
+    """Each kernel's launches in one M4Depth window of T frames whose
+    frame 0 starts every sequence, at ``levels`` levels: a training step
+    (``remat`` its policy, "" for none) or, without ``train``, a window
+    without grad. A level launches glue_prep on every frame, and the cost
+    volumes' forwards, glue_assemble and glue_finish on every frame but
+    the first; a training step each backward kernel once where those ran;
+    remat "all" runs those levels' forwards again in the backward (their
+    glue_prep included), "dscv" the DSCV forward."""
+    cv = (T - 1) * levels
+    out = {k: 0 for k in KERNELS}
+    out.update({k: cv for k in FORWARD + GLUE}, glue_prep=T * levels)
+    if train:
+        out.update({k: cv for k in BACKWARD + GLUE_BACKWARD})
+        for k in {"all": FORWARD + GLUE, "dscv": ("dscv_forward",),
+                  "": ()}[remat]:
+            out[k] += cv
+    return out
 
 
 def phase_environment() -> None:
@@ -669,13 +709,15 @@ def phase_train_card_vs_cpu(dev) -> None:
                     1 + (2.0 * sign.to(d) - 1) * 2.0 ** -24)
             before = {k: kern.launches for k, kern in KERNELS.items()}
             with (plain_cost_volumes() if plain and d != "cpu"
-                  else contextlib.nullcontext()):
+                  else contextlib.nullcontext()), (
+                      plain_glue() if plain and d != "cpu"
+                      else contextlib.nullcontext()):
                 out = {k: v.item() for k, v in
                        make_train_step(model, opt)(batch).items()}
+            want_step = m4depth_launches(T, cfg.num_levels)
             for k, kern in KERNELS.items():
                 n = kern.launches - before[k]
-                want = 0 if plain or k in GLUE else (
-                    (T - 1) * cfg.num_levels)
+                want = 0 if plain else want_step[k]
                 check(n == want, f"{k}: {n} launches in one step on {d}, "
                       f"expected {want}")
             runs.append(dict(
@@ -896,8 +938,9 @@ def phase_train_path(dev, family=M4Depth, T: int = TRAIN_T,
     cfg = ModelConfig(**{"compute_dtype": "bfloat16",
                          "cv_dtype": "bfloat16", **cfg_kw})
     if per_step is None:
-        per_step = {k: 0 if k in GLUE else (T - 1) * cfg.num_levels
-                    for k in KERNELS}
+        per_step = m4depth_launches(T, cfg.num_levels,
+                                    remat=cfg.remat_policy if cfg.remat
+                                    else "")
     model = family(cfg, device=dev, seed=0)
     step = make_train_step(model if wrap is None else wrap(model),
                            make_optimizer(model, TrainConfig(
@@ -998,18 +1041,12 @@ def phase_remat(dev) -> dict:
     with ``remat_policy`` "all" (each decoder level runs its forward again
     in the backward: each forward kernel launches twice a level) and
     "dscv" (the DSCV alone again)."""
-    fwd2 = (REMAT_T - 1) * 6
     runs = {}
-    for name, kw, per_step in (
-            ("none", {}, None),
-            ("all", dict(remat=True, remat_policy="all"),
-             {k: 0 if k in GLUE else fwd2 * (2 if k in FORWARD else 1)
-              for k in KERNELS}),
-            ("dscv", dict(remat=True, remat_policy="dscv"),
-             {k: 0 if k in GLUE else fwd2 * (2 if k == "dscv_forward" else 1)
-              for k in KERNELS})):
+    for name, kw in (("none", {}),
+                     ("all", dict(remat=True, remat_policy="all")),
+                     ("dscv", dict(remat=True, remat_policy="dscv"))):
         log(f"  remat {name}:")
-        runs[name] = phase_train_path(dev, T=REMAT_T, per_step=per_step, **kw)
+        runs[name] = phase_train_path(dev, T=REMAT_T, **kw)
         del runs[name]["run"]                 # frees the model and batch
         torch.cuda.empty_cache()
     return runs
@@ -1045,17 +1082,17 @@ def phase_gates() -> dict:
               f"the {model} geometry gate: AbsRel {metrics[0]}, Delta1 "
               f"{metrics[1]}")
         # d4, T=2: M4Depth's cost volumes run on frame 1 of each window, V1's
-        # on both frames; the evaluation adds one window's forwards, and,
-        # without grad, M4Depth's glue kernels: glue_prep on both frames,
-        # the other two where the cost volumes run
-        frames = 2 if model == "m4depth-v1" else 1
+        # on both frames; the evaluation adds one window's forwards (and,
+        # M4Depth's, its glue: glue_prep on both frames)
+        m4d = {k: steps * n for k, n in m4depth_launches(2, 4).items()}
+        for k, n in m4depth_launches(2, 4, train=False).items():
+            m4d[k] += n
         for k, n in launches.items():
-            if model == "m4depth-v1" and (k.startswith("dscv") or k in GLUE):
-                want = 0
-            elif k in GLUE:
-                want = 4 * (2 if k == "glue_prep" else 1)
+            if model == "m4depth-v1":
+                want = (0 if k.startswith("dscv") or k.startswith("glue")
+                        else 8 * (steps + (k in FORWARD)))
             else:
-                want = 4 * frames * (steps + (k in FORWARD))
+                want = m4d[k]
             check(n == want, f"{model} gate: {k} {n} launches, expected "
                   f"{want}")
         log(f"  [{card}] {model} geometry gate (d4 64x64 bf16, b=4, T=2, "
@@ -1215,8 +1252,7 @@ def phase_cli(dev, train_ms_no_loading: float) -> dict:
         text = run_cli(["--mode=train", f"--ckpt_dir={ckpt}",
                         f"--total_steps={CLI_TRAIN_STEPS}"] + train_args)
         out["train_launches"] = launch_counts()
-        per_step = {k: 0 if k in GLUE else (TRAIN_T - 1) * 6
-                    for k in KERNELS}
+        per_step = m4depth_launches(TRAIN_T)
         for k, n in out["train_launches"].items():
             check(n == per_step[k] * CLI_TRAIN_STEPS,
                   f"CLI train: {k} {n} launches in {CLI_TRAIN_STEPS} steps")
@@ -1413,10 +1449,9 @@ def phase_cli(dev, train_ms_no_loading: float) -> dict:
         out["remat_launches"] = launch_counts()
         out["remat_ms_step"] = parsed(r"step ms median ([0-9.]+)", text,
                                       "remat step time")
+        remat_step = m4depth_launches(REMAT_T, remat="all")
         for k, count in out["remat_launches"].items():
-            want = 0 if k in GLUE else (
-                (REMAT_T - 1) * 6 * (2 if k in FORWARD else 1)
-                * CLI_REMAT_STEPS)
+            want = remat_step[k] * CLI_REMAT_STEPS
             check(count == want, f"CLI --remat: {k} {count} launches, "
                   f"expected {want}")
 
@@ -2106,7 +2141,7 @@ def phase_ddp_gloo(dev) -> dict:
               f"rank {r}'s weights after the step equal rank 0's")
     for r, out in enumerate(ranks):
         for k, count in out["launches"].items():
-            per_step = 0 if k in GLUE else (TRAIN_T - 1) * 6
+            per_step = m4depth_launches(TRAIN_T)[k]
             check(count == per_step * GLOO_TIMED_STEPS,
                   f"rank {r}: {k} {count} launches in {GLOO_TIMED_STEPS} "
                   f"steps, expected {per_step} a step")
@@ -2424,7 +2459,7 @@ def phase_tools(dev) -> dict:
     steps = 1 + train_prof.WARMUP_STEPS \
         + train_prof.REPEATS * TOOL_TRAIN_STEPS + train_prof.PROFILED_STEPS
     check(np.isfinite(r["loss"]) and all(
-        n == (0 if k in GLUE else (TRAIN_T - 1) * 6 * steps)
+        n == m4depth_launches(TRAIN_T)[k] * steps
         for k, n in launches["train_prof"].items()),
         f"train_prof launches in {steps} steps: {launches['train_prof']}")
     bd = r["breakdown"]
@@ -2495,7 +2530,11 @@ DEVICE_KERNELS = {"sncv_forward": ("sncv_forward_kernel",),
                   "dscv_backward": ("dscv_backward_kernel",),
                   "glue_prep": ("glue_prep_kernel",),
                   "glue_assemble": ("glue_assemble_kernel",),
-                  "glue_finish": ("glue_finish_kernel",)}
+                  "glue_finish": ("glue_finish_kernel",),
+                  "glue_prep_backward": ("glue_prep_backward_kernel",),
+                  "glue_assemble_backward": (
+                      "glue_assemble_backward_kernel",),
+                  "glue_finish_backward": ("glue_finish_backward_kernel",)}
 HOST_LAUNCHES = ("cudaLaunchKernel", "cuLaunchKernel", "cudaGraphLaunch",
                  "cudaMemcpyAsync", "cudaMemsetAsync")
 
@@ -2799,8 +2838,8 @@ def phase_graphs(dev) -> dict:
     torch.cuda.empty_cache()
 
     log("  training, compiled against eager")
-    out["train"] = graphed_training(dev, M4Depth, {
-        k: 0 if k in GLUE else (TRAIN_T - 1) * 6 for k in KERNELS}, card)
+    out["train"] = graphed_training(dev, M4Depth, m4depth_launches(TRAIN_T),
+                                    card)
     out["v1_train"] = graphed_training(dev, M4DepthV1, v1_launches(TRAIN_T),
                                        card)
     torch.cuda.empty_cache()
@@ -2854,9 +2893,9 @@ def phase_graphs(dev) -> dict:
     losses.append(float(step(batch)["loss"]))
     remat_ms = (time.perf_counter() - t0) * 1e3
     launches = launch_counts()
-    fwd2 = (REMAT_T - 1) * 6
+    per_step = m4depth_launches(REMAT_T, remat="all")
     for k, n in launches.items():
-        want = 0 if k in GLUE else 3 * fwd2 * (2 if k in FORWARD else 1)
+        want = 3 * per_step[k]
         check(n == want, f"remat all, compiled: {k} {n} launches in 3 "
               f"steps, expected {want}")
     check(all(np.isfinite(losses)), f"remat all, compiled: losses {losses}")
@@ -2916,6 +2955,7 @@ def phase_graphs(dev) -> dict:
 # -- phase 21 ---------------------------------------------------------------
 
 GLUE_OTHER = 4          # the memory channels a level hands the next
+GLUE_REPLAYS = 5        # replays of a step's glue under the profiler
 
 
 def glue_cases(spec, n_levels: int, dev, seed: int, cv_dtype) -> dict:
@@ -3038,6 +3078,136 @@ def check_glue_case(name: str, case: dict, cv, dev, what: str) -> tuple:
     return f32_err, ulps
 
 
+def glue_step_leaves(cfg: ModelConfig, dev, b: int, seed: int) -> dict:
+    """The tensors one training step's glue reads at d6's level shapes
+    (SIZE x SIZE, batch b, bf16 features), by (frame, level): each frame's
+    features, and from frame 1 on the cost volumes, the warped parallax
+    and the refiner's output, each a leaf that requires grad; the motion
+    and the full-resolution camera."""
+    g = torch.Generator().manual_seed(seed)
+    leaves = {}
+    for t in range(TRAIN_T):
+        for level, h, w, C, cuts, _ in level_specs(cfg, b):
+            x = dict(curr_f=torch.randn(b, h, w, C, generator=g)
+                     .to(torch.bfloat16))
+            if t > 0:
+                reproj = torch.rand(b, h, w, 1, generator=g) * 5
+                reproj[:, ::3] = 0.0        # the log's 1e-12 clamp
+                x.update(cv=torch.randn(b, h, w, 9 * cuts, generator=g),
+                         sncv=torch.randn(b, h, w, 49 * cuts, generator=g),
+                         reproj=reproj,
+                         out=(torch.randn(b, h, w, 1 + GLUE_OTHER,
+                                          generator=g) * 3)
+                         .to(torch.bfloat16))
+            leaves[t, level] = {k: v.to(dev).requires_grad_()
+                                for k, v in x.items()}
+    f = torch.full((b, 2), FOCAL, device=dev)
+    return dict(leaves=leaves, cam=Camera(f, f.clone()),
+                rot=torch.tensor([ROT] * b, device=dev),
+                trans=torch.tensor([TRANS] * b, device=dev))
+
+
+def glue_step(cfg: ModelConfig, fns, x: dict):
+    """One training step's glue, as ``M4Depth.forward`` runs it with
+    ``fns`` = (prep, assemble, finish): TRAIN_T frames of the six levels,
+    deepest first, frame 0 without state (24 preps, 18 assembles and
+    finishes); the features' memory is the last frame's features. Returns
+    the outputs that the step differentiates from outside the glue: the
+    cost volumes' features and sweep centre, the refiner's input and the
+    level's depth (the others feed later glue)."""
+    prep, assemble, finish = fns
+    outs, state = [], {}
+    for t in range(TRAIN_T):
+        deeper = None
+        for level, h, w, C, cuts, _ in reversed(level_specs(cfg)):
+            xi = x["leaves"][t, level]
+            mul = 2.0 ** (level - 3)
+            prev, cam_l, curr_p, prev_p, _ = prep(
+                xi["curr_f"], deeper, state.get(level), x["trans"], x["cam"],
+                2.0 ** level, cuts, True, GLUE_OTHER, 1000.0, torch.bfloat16)
+            if t == 0:
+                deeper = prev
+                state[level] = (xi["curr_f"], torch.full_like(prev[0],
+                                                              1000.0))
+                continue
+            f_input = assemble(xi["cv"], prev[1], prev[2], xi["sncv"],
+                               xi["reproj"], mul, torch.bfloat16)
+            deeper, depth = finish(xi["out"], prev, None, x["rot"],
+                                   x["trans"], cam_l, mul, 1000.0)
+            state[level] = (xi["curr_f"], depth)
+            outs += [curr_p, prev_p, prev[1], f_input, depth]
+    return outs
+
+
+def glue_step_replay(cfg: ModelConfig, dev, fns, what: str,
+                     seed: int = 0) -> dict:
+    """One training step's glue (``glue_step`` with ``fns``) at b=TRAIN_B,
+    captured into a CUDA graph twice: its forward alone (grad enabled, as
+    training runs it) and its forward with the backward (random
+    cotangents on ``glue_step``'s outputs, ``torch.autograd.grad`` of
+    every leaf); each replayed under the profiler. Device-busy us and the
+    device's kernels a replay for each, the backward's as their
+    difference."""
+    x = glue_step_leaves(cfg, dev, TRAIN_B, seed)
+    leaves = [v for xi in x["leaves"].values() for v in xi.values()]
+    g = torch.Generator(device=dev).manual_seed(seed)
+    cots = [torch.randn(o.shape, generator=g, device=dev).to(o.dtype)
+            for o in glue_step(cfg, fns, x)]
+
+    def forward():
+        return glue_step(cfg, fns, x)
+
+    def both():
+        # the deepest level's deeper estimate is constant: no gradient
+        pairs = [(o, c) for o, c in zip(glue_step(cfg, fns, x), cots)
+                 if o.requires_grad]
+        return torch.autograd.grad([o for o, _ in pairs], leaves,
+                                   [c for _, c in pairs], allow_unused=True)
+
+    from torch.autograd import DeviceType
+
+    out = {}
+    for key, fn in (("forward", forward), ("both", both)):
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            for _ in range(2):
+                fn()
+        torch.cuda.current_stream(dev).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with _build.recording_launches() as launches, torch.cuda.graph(graph):
+            fn()
+        torch.cuda.synchronize()
+        events, _ = profiled(graph.replay, GLUE_REPLAYS)
+        kernels = [e for e in events if e.device_type == DeviceType.CUDA
+                   and not ("#" in e.name and "(" not in e.name)]
+        out[key] = dict(
+            busy_us=sum(e.time_range.elapsed_us() for e in kernels)
+            / GLUE_REPLAYS,
+            kernels=len(kernels) / GLUE_REPLAYS,
+            span_ms=device_ms(graph.replay, GLUE_REPLAYS),
+            # the hand-written kernels the graph launches, as its capture
+            # recorded them
+            launches={k.symbol: n for k, n in launches.items()},
+            # the glue's own kernels: (runs, device us) a replay in the
+            # profile, which can miss a few graph kernels (replay_kernels)
+            glue={k: (sum(n in e.name for n in DEVICE_KERNELS[k]
+                          for e in kernels) / GLUE_REPLAYS,
+                      sum(e.time_range.elapsed_us() for e in kernels
+                          if any(n in e.name for n in DEVICE_KERNELS[k]))
+                      / GLUE_REPLAYS)
+                  for k in GLUE + GLUE_BACKWARD})
+        del graph
+    out["backward"] = {k: out["both"][k] - out["forward"][k]
+                       for k in ("busy_us", "kernels", "span_ms")}
+    log(f"  {what} glue of a step (d6 {SIZE}x{SIZE} b={TRAIN_B} T={TRAIN_T}"
+        f" bf16, replayed): " + "; ".join(
+            f"{k} {r['busy_us']:.1f} us busy, {r['kernels']:.0f} kernels, "
+            f"{r['span_ms'] * 1e3:.1f} us a replay" for k, r in out.items())
+        + "; the glue kernels (runs, us): " + json.dumps(out["both"]["glue"]))
+    return out
+
+
 def phase_glue(cfg: ModelConfig, dev) -> dict:
     """The decoder glue's kernels at d6's six level shapes (384x384, b=1,
     bf16 convs and cost volumes), each against its plain version on the
@@ -3087,6 +3257,230 @@ def phase_glue(cfg: ModelConfig, dev) -> dict:
             f"{100 * t['bound_ms'] / t['ms']:.1f}% of bound; plain "
             f"{t['plain_ms'] * 1e3:.1f} us)")
     return totals
+
+
+def glue_backward_cases(spec, n_levels: int, dev, seed: int,
+                        dtype) -> dict:
+    """Each glue backward kernel's fused and plain calls at one d6 level
+    shape (``level_specs``' batch), features, cost volumes and the
+    refiner's input in ``dtype``, as the training step makes them: the
+    features' gradients in the cost volumes' dtype, the resized deeper
+    estimate's parallax and memory (its depth gets none), the refiner
+    input's, the estimate's; some feature cuts zero (the norm's clamp),
+    log parallaxes on and beyond the clip's bounds, the log's clamp met.
+    With each: the call through autograd of its fused wrapper (the
+    Function's backward, as the model runs it) and the unique bytes it
+    reads and writes."""
+    level, h, w, C, cuts, cam_l = spec
+    b = cam_l.f.shape[0]
+    g = torch.Generator().manual_seed(seed)
+    cc = C // cuts
+
+    def rnd(*shape, dt=torch.float32):
+        return torch.randn(*shape, generator=g).to(dt)
+
+    hd, wd = -(-h // 2), -(-w // 2)
+    f = torch.full((b, 2), FOCAL)
+    x = dict(curr_f=rnd(b, h, w, C, dt=dtype), f_maps=rnd(b, h, w, C,
+                                                          dt=dtype),
+             depth=torch.rand(b, h, w, 1, generator=g) * 38 + 2,
+             g_curr=rnd(b, h, w, C, dt=dtype), g_prev_p=rnd(b, h, w, C,
+                                                            dt=dtype),
+             g_para=rnd(b, h, w, 1), g_other=rnd(b, h, w, GLUE_OTHER),
+             cv=rnd(b, h, w, 9 * cuts), sncv=rnd(b, h, w, 49 * cuts),
+             reproj=torch.rand(b, h, w, 1, generator=g) * 5,
+             out=rnd(b, h, w, 1 + GLUE_OTHER) * 4,
+             g_est=[rnd(b, h, w, 1), rnd(b, h, w, 1),
+                    rnd(b, h, w, GLUE_OTHER)],
+             rot=torch.tensor([ROT] * b), trans=torch.tensor([TRANS] * b),
+             f=f, c=f.clone())
+    x["curr_f"][:, ::5, ::3, :cc] = 0
+    x["f_maps"][:, 1::4, ::2, -cc:] = 0
+    x["reproj"][:, ::3] = 0.0
+    x["out"][:, ::7, ::5, 0] = 7.0
+    x["out"][:, 1::7, ::5, 0] = -7.0
+    n = 9 * cuts + 1 + GLUE_OTHER + 49 * cuts + 1
+    x["g_input"] = rnd(b, h, w, n, dt=dtype)
+    x["out"] = x["out"].to(dtype)
+    deeper = None if level == n_levels else (
+        torch.rand(b, hd, wd, 1, generator=g) * 38 + 2,
+        torch.rand(b, hd, wd, 1, generator=g) * 2.9 + 0.1,
+        rnd(b, hd, wd, GLUE_OTHER))
+    x = {k: [t.to(dev) for t in v] if isinstance(v, list) else v.to(dev)
+         for k, v in x.items()}
+    if deeper is not None:
+        deeper = tuple(t.to(dev) for t in deeper)
+    cam = Camera(x["f"], x["c"])
+    lvl_mul = 2.0 ** (level - 3)
+    deeper_hw = None if deeper is None else (hd, wd)
+    g_prev = (None, x["g_para"], x["g_other"])
+    prep_args = (x["g_curr"], x["g_prev_p"], g_prev, x["curr_f"],
+                 x["f_maps"], deeper_hw, cuts, True)
+    prev, cam_l = glue.glue_prep(x["curr_f"], deeper,
+                                 (x["f_maps"], x["depth"]), x["trans"], cam,
+                                 2.0 ** level, cuts, True, GLUE_OTHER, 1000.0,
+                                 dtype)[:2]
+    asm_args = (x["g_input"], prev[1], x["reproj"], 9 * cuts, GLUE_OTHER,
+                49 * cuts, lvl_mul, (True,) * 5)
+    fin_args = (x["g_est"], x["out"], x["rot"], x["trans"], cam_l, lvl_mul)
+
+    # through autograd: the fused wrappers on leaves that require grad,
+    # each backward alone (retain_graph keeps the forward for every call)
+    leaf = {k: x[k].clone().requires_grad_()
+            for k in ("curr_f", "f_maps", "cv", "sncv", "reproj", "out")}
+    leaf_deeper = None if deeper is None else tuple(
+        t.clone().requires_grad_() for t in deeper)
+    p_out = glue.glue_prep_fused(
+        leaf["curr_f"], leaf_deeper, (leaf["f_maps"], x["depth"]),
+        x["trans"], cam, 2.0 ** level, cuts, True, GLUE_OTHER, 1000.0, dtype)
+    p_outs = [p_out[2], p_out[3]] + ([] if deeper is None else
+                                     [p_out[0][1], p_out[0][2]])
+    p_cots = [x["g_curr"], x["g_prev_p"], x["g_para"], x["g_other"]]
+    p_ins = [leaf["curr_f"], leaf["f_maps"], *(leaf_deeper or ())]
+    prev_leaf = tuple(t.detach().requires_grad_() for t in prev)
+    f_input = glue.glue_assemble_fused(leaf["cv"], prev_leaf[1],
+                                       prev_leaf[2], leaf["sncv"],
+                                       leaf["reproj"], lvl_mul, dtype)
+    a_ins = [leaf["cv"], prev_leaf[1], prev_leaf[2], leaf["sncv"],
+             leaf["reproj"]]
+    est, _ = glue.glue_finish_fused(leaf["out"], prev, None, x["rot"],
+                                    x["trans"], cam_l, lvl_mul, 1000.0)
+
+    def nbytes(*ts):
+        return sum(t.numel() * t.element_size() for t in ts if t is not None)
+
+    return dict(
+        glue_prep_backward=dict(
+            fused=lambda: glue.glue_prep_backward_fused(*prep_args),
+            plain=lambda: glue.glue_prep_backward(*prep_args),
+            autograd=lambda: torch.autograd.grad(
+                p_outs, p_ins, p_cots[:len(p_outs)], retain_graph=True,
+                allow_unused=True),
+            nbytes=3 * nbytes(x["curr_f"], x["f_maps"])
+            + nbytes(x["g_para"], x["g_other"])
+            + (0 if deeper is None else nbytes(*deeper[1:])),
+            flops=8 * b * h * w * C + 40 * b * hd * wd * (1 + GLUE_OTHER)),
+        glue_assemble_backward=dict(
+            fused=lambda: glue.glue_assemble_backward_fused(*asm_args),
+            plain=lambda: glue.glue_assemble_backward(*asm_args),
+            autograd=lambda: torch.autograd.grad(
+                f_input, a_ins, x["g_input"], retain_graph=True),
+            nbytes=nbytes(x["g_input"], prev[1], x["reproj"], x["cv"],
+                          prev[1], prev[2], x["sncv"], x["reproj"]),
+            flops=4 * b * h * w),
+        glue_finish_backward=dict(
+            fused=lambda: glue.glue_finish_backward_fused(*fin_args),
+            plain=lambda: glue.glue_finish_backward(*fin_args),
+            autograd=lambda: torch.autograd.grad(
+                est, leaf["out"], x["g_est"], retain_graph=True),
+            nbytes=nbytes(*x["g_est"], x["out"], x["out"]),
+            flops=80 * b * h * w))
+
+
+def phase_glue_backward(cfg: ModelConfig, dev) -> dict:
+    """The glue's backward kernels at d6's six level shapes with b=TRAIN_B:
+    each against its plain version in bfloat16 and float32 (features, cost
+    volumes and refiner input in that dtype; ``testing.GLUE_BWD_TOL``),
+    then, in bfloat16 (the training step's dtypes), its device time a call
+    as called directly and through autograd of its fused wrapper, beside
+    its plain version's and its bound; totals a training step (each level
+    runs each backward TRAIN_T - 1 times)."""
+    calls = TRAIN_T - 1
+    totals = {k: dict(ms=0.0, plain_ms=0.0, autograd_ms=0.0, bound_ms=0.0,
+                      t_bytes=0.0, t_ops=0.0, max_err={})
+              for k in GLUE_BACKWARD}
+    levels = []
+    for spec in level_specs(cfg, TRAIN_B):
+        level, h, w, C, cuts = spec[:5]
+        row = dict(level=level, b=TRAIN_B, h=h, w=w, C=C, cuts=cuts)
+        for dtype in (torch.float32, torch.bfloat16):
+            cases = glue_backward_cases(spec, cfg.num_levels, dev,
+                                        31 + level, dtype)
+            for name in GLUE_BACKWARD:
+                d = cases[name]
+                got, want = d["fused"](), d["plain"]()
+                if name == "glue_prep_backward":
+                    got = got[:2] + tuple(got[2] or ())
+                    want = want[:2] + tuple(want[2] or ())
+                elif name == "glue_finish_backward":
+                    got, want = (got,), (want,)
+                err = 0.0
+                for i, (a, r) in enumerate(zip(got, want)):
+                    check((a is None) == (r is None), f"level {level} "
+                          f"{name}[{i}]: a gradient on one side only")
+                    if r is not None:
+                        check(a.dtype == r.dtype and a.shape == r.shape,
+                              f"level {level} {name}[{i}] {a.dtype}")
+                        err = max(err, assert_grad_close(
+                            a, r, GLUE_BWD_TOL[r.dtype],
+                            f"level {level} {h}x{w} {dtype_name(dtype)} "
+                            f"{name}[{i}]"))
+                key = dtype_name(dtype)
+                t = totals[name]
+                t["max_err"][key] = max(t["max_err"].get(key, 0.0), err)
+                if dtype != torch.bfloat16:
+                    continue
+                ms = device_ms(d["fused"], 100)
+                ag_ms = device_ms(d["autograd"], 20)
+                plain_ms = device_ms(d["plain"], 3)
+                b_ms, b_by = bound(d["nbytes"], d["flops"])
+                t["ms"] += ms * calls
+                t["autograd_ms"] += ag_ms * calls
+                t["plain_ms"] += plain_ms * calls
+                t["bound_ms"] += b_ms * calls
+                t["t_bytes"] += d["nbytes"] / HBM_BYTES_PER_S * 1e3 * calls
+                t["t_ops"] += d["flops"] / FP32_FLOPS_PER_S * 1e3 * calls
+                row[name] = dict(ms=ms, autograd_ms=ag_ms, plain_ms=plain_ms,
+                                 bound_ms=b_ms, bound_by=b_by,
+                                 bytes=d["nbytes"], flops=d["flops"],
+                                 max_abs_err=err)
+                log(f"  level {level} b={TRAIN_B} {h}x{w} C={C} cuts={cuts} "
+                    f"{name}: kernel {ms * 1e3:.2f} us, through autograd "
+                    f"{ag_ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} us, "
+                    f"bound {b_ms * 1e3:.3f} us ({b_by}; {d['nbytes']} B), "
+                    f"{100 * b_ms / ms:.1f}% of bound; max |error| "
+                    f"{err:.3e}")
+        levels.append(row)
+    log(json.dumps({"glue_backward_levels": levels}))
+    for name, t in totals.items():
+        log(f"  {name}: {t['ms'] * 1e3:.1f} us/step (through autograd "
+            f"{t['autograd_ms'] * 1e3:.1f} us; bound "
+            f"{t['bound_ms'] * 1e3:.2f} us, "
+            f"{100 * t['bound_ms'] / t['ms']:.1f}% of bound; plain "
+            f"{t['plain_ms'] * 1e3:.1f} us); max |error| {t['max_err']}")
+    return totals
+
+
+def phase_glue_training(dev) -> dict:
+    """One training step's glue replayed (``glue_step_replay``), plain and
+    fused (its kernels' runs and device time a step through autograd);
+    then compiled float32 d6 steps with the glue kernels against eager
+    steps with the plain glue (``testing.assert_glue_steps_close``),
+    without remat and with each policy."""
+    cfg = ModelConfig(compute_dtype="bfloat16")
+    out = {}
+    for key, fns in (("plain", (glue.glue_prep, glue.glue_assemble,
+                                glue.glue_finish)),
+                     ("fused", (glue.glue_prep_fused,
+                                glue.glue_assemble_fused,
+                                glue.glue_finish_fused))):
+        out[key] = glue_step_replay(cfg, dev, fns, key)
+    want = m4depth_launches(TRAIN_T)
+    got = out["fused"]["both"]["launches"]
+    check(got == {k: want[k] for k in GLUE + GLUE_BACKWARD}
+          and not out["plain"]["both"]["launches"],
+          f"the replayed step's glue launches {got}, the plain glue's "
+          f"{out['plain']['both']['launches']}")
+    torch.cuda.empty_cache()
+    for remat in ("", "all", "dscv"):
+        kw = dict(remat=True, remat_policy=remat) if remat else {}
+        res = assert_glue_steps_close(dev, **kw)
+        log(f"  compiled float32 d6 128x128 b=2 T=3 steps, glue kernels "
+            f"against the plain glue, remat {remat or 'none'}: worst leaf "
+            "share of its tolerance by step "
+            f"{[round(max(r['shares'].values()), 4) for r in res]}")
+        torch.cuda.empty_cache()
+    return out
 
 
 KERNEL_INFO = {
@@ -3237,8 +3631,16 @@ def main() -> int:
         f"float32 check; T={REMAT_T} with remat; the CLI's eval mode")
     graphs = timed(20, phase_graphs, dev)
     log("== phase 21: the decoder glue's kernels against their plain "
-        "versions (d6 384x384 level shapes, b=1, bf16), timed")
-    glue_totals = timed(21, phase_glue, serving, dev)
+        "versions (d6 384x384 level shapes, b=1, bf16), timed; their "
+        f"backward kernels (b={TRAIN_B}, float32 and bf16), timed; one "
+        "training step's glue replayed, plain and fused; compiled float32 "
+        "steps with the glue kernels against the plain glue, each remat "
+        "policy")
+    t0 = time.perf_counter()
+    glue_totals = phase_glue(serving, dev)
+    glue_totals.update(phase_glue_backward(serving, dev))
+    glue_train = phase_glue_training(dev)
+    times[21] = time.perf_counter() - t0
 
     kernels = []
     for key, info in KERNEL_INFO.items():
@@ -3348,16 +3750,23 @@ def main() -> int:
         check(kernels[-1]["launches_per_step"]
               == f16["train"]["per_step"][key],
               f"{key} float16 launches per step")
-    # the decoder glue's kernels, which run only without grad: launches are
-    # the serving path's (phase 6, counted from 0 just before it), times a
-    # serving frame (b=1, six levels); the JAX package's XLA fuses this glue
-    for key in GLUE:
+    # the decoder glue's kernels and their backwards: launches are the
+    # serving path's (phase 6, counted from 0 just before it) and the
+    # training path's (phase 8); the forwards' times a serving frame (b=1,
+    # six levels), the backwards' a training step (b=3); through autograd,
+    # each one's device time in one training step's glue replayed (phase
+    # 21); the JAX package's XLA fuses this glue and its VJP
+    per_step = m4depth_launches(TRAIN_T)
+    for key in GLUE + GLUE_BACKWARD:
         t = glue_totals[key]
         n_serve = serve["launches"][key]
+        runs = glue_train["fused"]["both"]["launches"].get(key, 0)
+        us = glue_train["fused"]["both"]["glue"][key][1]
         kernels.append(dict(
             name=key, route="cuda",
-            source="m4depth_tpu_torch/ops/csrc/glue.cu", replaces=None,
-            plain=f"m4depth_tpu_torch/ops/glue.py::{key}",
+            source=("m4depth_tpu_torch/ops/csrc/"
+                    + ("glue.cu" if key in GLUE else "glue_backward.cu")),
+            replaces=None, plain=f"m4depth_tpu_torch/ops/glue.py::{key}",
             launches=n_serve,
             serving_launches_per_frame=n_serve // serve["n_frames"],
             launches_per_step=train["launches"][key] // train["n_steps"],
@@ -3365,13 +3774,26 @@ def main() -> int:
             graph_serving_launches_per_frame=(
                 graphs["serve"]["launches"][key] // GRAPH_FRAMES),
             graph_profiled_per_frame=graphs["serve"]["replay"][key],
-            max_abs_err=t["max_abs_err"], max_ulps=t["max_ulps"],
+            graph_launches_per_step=graphs["train"]["compiled"]["launches"][
+                key] // 3,
+            graph_profiled_per_step=graphs["train"]["replay"][key],
+            max_abs_err=t.get("max_abs_err", t.get("max_err")),
+            max_ulps=t.get("max_ulps"),
             ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
             bound_by="bytes" if t["t_bytes"] >= t["t_ops"] else "operations",
+            autograd_ms=t.get("autograd_ms"),
+            step_replay_runs=runs, step_replay_ms=us * 1e-3,
             library_ms=None, passed=True))
-        check(kernels[-1]["serving_launches_per_frame"] == serving.num_levels
-              and kernels[-1]["launches_per_step"] == 0,
-              f"{key}: once a level a serving frame, never in training")
+        check(kernels[-1]["serving_launches_per_frame"]
+              == (serving.num_levels if key in GLUE else 0)
+              and kernels[-1]["launches_per_step"] == per_step[key],
+              f"{key}: {kernels[-1]['serving_launches_per_frame']} a "
+              f"serving frame, {kernels[-1]['launches_per_step']} a "
+              f"training step, expected {per_step[key]}")
+    log(json.dumps({"glue_step_replay": {
+        k: {p: {q: v for q, v in r.items() if q != "glue"}
+            for p, r in d.items()} for k, d in glue_train.items()},
+        "card": gpu_name_and_power_limit()}))
     log("phase times: " + ", ".join(f"{k} {v:.1f} s" for k, v in
                                     times.items()))
     log(json.dumps({"compiled_cost": costs}))

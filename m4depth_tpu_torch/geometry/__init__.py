@@ -15,6 +15,7 @@ from m4depth_tpu_torch.geometry.parallax import (
 from m4depth_tpu_torch.geometry.resize import (
     resize_bilinear,
     resize_bilinear_v1,
+    resize_bilinear_v1_transpose,
     resize_nearest,
 )
 from m4depth_tpu_torch.geometry.rotations import rot_mat
@@ -24,5 +25,6 @@ __all__ = [
     "parallax_sweep_flows", "parallax_to_depth", "pixel_grid",
     "prev_depth_to_parallax", "recompute_depth", "reproject",
     "reprojection_flow", "resize_bilinear", "resize_bilinear_v1",
-    "resize_nearest", "rot_mat", "scale_camera",
+    "resize_bilinear_v1_transpose", "resize_nearest", "rot_mat",
+    "scale_camera",
 ]

@@ -23,11 +23,8 @@ from m4depth_tpu_torch.ops import (
     spatial_cost_volume_fused,
 )
 from m4depth_tpu_torch.ops.glue import (
-    glue_assemble,
     glue_assemble_fused,
-    glue_finish,
     glue_finish_fused,
-    glue_prep,
     glue_prep_fused,
 )
 from m4depth_tpu_torch.utils import tracing
@@ -138,21 +135,20 @@ class DecoderLevel(nn.Module):
             element resets (training windows).
 
         The glue around the cost volumes and the refiner (``ops/glue.py``)
-        runs as its plain PyTorch version while grad is enabled, and
-        through its fused wrappers (the kernels of ``ops/csrc/glue.cu`` on
-        CUDA tensors) while it is not; the counters
-        ``decoder.glue_plain`` and ``decoder.glue_fused`` count the calls.
+        runs through its fused wrappers: on CUDA tensors the kernels of
+        ``ops/csrc/glue.cu``, with grad enabled through their autograd
+        Functions, whose backwards are the kernels of
+        ``ops/csrc/glue_backward.cu``; on CPU tensors the plain PyTorch
+        versions. The counters ``decoder.glue_fused`` and
+        ``decoder.glue_plain`` count the calls of each.
         """
         cfg, abl = self.cfg, self.cfg.ablation
         cuts = cfg.num_cuts(self.level)
-        fused = not torch.is_grad_enabled()
-        tracing.tally("decoder.glue_fused" if fused else "decoder.glue_plain")
-        prep, assemble, finish = (
-            (glue_prep_fused, glue_assemble_fused, glue_finish_fused) if fused
-            else (glue_prep, glue_assemble, glue_finish))
+        tracing.tally("decoder.glue_fused" if curr_f.device.type == "cuda"
+                      else "decoder.glue_plain")
 
         # at the deepest level the deeper estimate's stand-in is (1000, 1, 0)
-        prev, cam_l, curr_p, prev_p, para_prev_t = prep(
+        prev, cam_l, curr_p, prev_p, para_prev_t = glue_prep_fused(
             curr_f, deeper_est, state, trans, camera, 2.0 ** self.level, cuts,
             abl.normalize_features, self.other_channels, INIT_DEPTH,
             cfg.torch_cv_dtype)
@@ -179,7 +175,7 @@ class DecoderLevel(nn.Module):
                                           cfg.sncv_search_range, cuts,
                                           cfg.torch_cv_dtype, cfg.leaky_slope)
                 if abl.sncv else None)
-        f_input = assemble(
+        f_input = glue_assemble_fused(
             cv, prev_l.parallax, prev_l.other if abl.level_memory else None,
             sncv, para_reproj if abl.time_recurr else None, self.lvl_mul,
             cfg.torch_compute_dtype)
@@ -191,6 +187,6 @@ class DecoderLevel(nn.Module):
         # frame's c2 reaches this frame's encoder (the depth memory is
         # detached by prev_depth_to_parallax); on a reset the estimate is
         # the deeper one's and the depth memory starts again from 1000
-        est, depth = finish(out, prev_l, new_traj, rot, trans, cam_l,
-                            self.lvl_mul, INIT_DEPTH)
+        est, depth = glue_finish_fused(out, prev_l, new_traj, rot, trans,
+                                       cam_l, self.lvl_mul, INIT_DEPTH)
         return LevelEstimate(*est), LevelState(f_maps=curr_f, depth=depth)

@@ -1,5 +1,6 @@
-"""A decoder level's glue: the three CUDA kernels of ``csrc/glue.cu`` and
-their plain PyTorch versions.
+"""A decoder level's glue: the three CUDA kernels of ``csrc/glue.cu``, their
+backward kernels (``csrc/glue_backward.cu``), and the plain PyTorch
+versions of all six.
 
 The glue is the tensor work that ``models/decoder.py::DecoderLevel`` does
 around its two cost volumes and its refiner, in three steps:
@@ -17,13 +18,24 @@ around its two cost volumes and its refiner, in three steps:
 
 Every function takes and returns tensors, tuples of them and a ``Camera``:
 an estimate is a tuple ``(depth, parallax, other)`` of float32 maps
-``[b, h, w, 1 | 1 | n_other]``. The plain versions are autograd's; the
-decoder calls them while grad is enabled (training). Each ``*_fused``
-wrapper takes the same arguments: on CPU tensors it runs the plain
-version; on CUDA tensors it launches its kernel, or raises
-(``ValueError``) if an input requires grad, since the kernels have no
-backward. The decoder calls the wrappers while grad is disabled (the
-streaming step, the compiled serving frame, the eval steps).
+``[b, h, w, 1 | 1 | n_other]``. The plain versions are autograd's. Each
+``*_fused`` wrapper takes the same arguments: on CPU tensors it runs the
+plain version; on CUDA tensors it launches its kernel, through its
+autograd Function (``GluePrepFunction``, ``GlueAssembleFunction``,
+``GlueFinishFunction``) where grad is enabled and an input it
+differentiates requires grad. The Functions' backwards launch the
+kernels of ``csrc/glue_backward.cu``, whose plain versions are
+``glue_prep_backward``, ``glue_assemble_backward`` and
+``glue_finish_backward`` (autograd's formulas for the plain forwards,
+written out), and whose wrappers are the ``*_backward_fused`` ones. The
+decoder calls the fused wrappers on every path, training included.
+
+No gradient reaches the previous depth (the plain glue detaches its
+parallax too), the motion or the camera (nor through the cost-volume
+kernels): on CUDA tensors the wrappers raise (``ValueError``) where the
+motion or the camera requires grad under grad, and so does
+``glue_finish_fused`` where a ``reset`` is given under grad (the
+training windows reset none).
 
 One difference in the results: ``glue_prep_fused`` returns the features
 and the previous parallax already rounded to the cost volumes' dtype (as
@@ -42,9 +54,11 @@ import torch
 
 from m4depth_tpu_torch.geometry import (
     Camera,
+    epipolar_terms,
     parallax_to_depth,
     prev_depth_to_parallax,
     resize_bilinear_v1,
+    resize_bilinear_v1_transpose,
     scale_camera,
 )
 from m4depth_tpu_torch.ops._build import CudaKernel, check_kernel_inputs
@@ -61,6 +75,18 @@ GLUE_ASSEMBLE_KERNEL = CudaKernel(
 GLUE_FINISH_KERNEL = CudaKernel(
     "glue.cu", "glue_finish",
     [ctypes.c_void_p] * 13 + [ctypes.c_int] * 5 + [ctypes.c_float] * 2
+    + [ctypes.c_int, ctypes.c_void_p])
+GLUE_PREP_BACKWARD_KERNEL = CudaKernel(
+    "glue_backward.cu", "glue_prep_backward",
+    [ctypes.c_void_p] * 12 + [ctypes.c_int] * 9 + [ctypes.c_float] * 2
+    + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+GLUE_ASSEMBLE_BACKWARD_KERNEL = CudaKernel(
+    "glue_backward.cu", "glue_assemble_backward",
+    [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_float]
+    + [ctypes.c_int, ctypes.c_void_p])
+GLUE_FINISH_BACKWARD_KERNEL = CudaKernel(
+    "glue_backward.cu", "glue_finish_backward",
+    [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_float]
     + [ctypes.c_int, ctypes.c_void_p])
 
 # the dtypes of the convs' features, by the code the C entry points read
@@ -172,6 +198,111 @@ def glue_finish(out: torch.Tensor, prev: Sequence[torch.Tensor],
     return est, torch.where(mask, torch.full_like(depth, init_depth), depth)
 
 
+
+
+# -- the plain backward versions ------------------------------------------
+
+
+def _prep_features_backward(g: Optional[torch.Tensor], f: torch.Tensor,
+                            num_cuts: int,
+                            normalize: bool) -> Optional[torch.Tensor]:
+    """The gradient of ``f`` from ``g``, that of ``prep_features(f)`` in
+    the cost volumes' dtype: ``g`` cast to ``f``'s dtype, then, per cut,
+    ``g r + 2 x k`` with ``r = rsqrt(max(sq, 1e-12))`` and ``k = (x . g)
+    (-r^3 / 2)`` where ``sq >= 1e-12`` (else 0), in float32."""
+    if g is None:
+        return None
+    g = g.to(f.dtype)
+    if not normalize:
+        return g
+    b, h, w, c = f.shape
+    x = f.reshape(b, h, w, num_cuts, c // num_cuts).float()
+    g = g.reshape(x.shape).float()
+    sq = torch.sum(x * x, dim=-1, keepdim=True)
+    r = torch.rsqrt(torch.clamp(sq, min=1e-12))
+    k = torch.where(sq >= 1e-12,
+                    -0.5 * torch.sum(g * x, dim=-1, keepdim=True) * r ** 3,
+                    0.0)
+    return (g * r + 2.0 * (x * k)).reshape(f.shape).to(f.dtype)
+
+
+def glue_prep_backward(g_curr_p: Optional[torch.Tensor],
+                       g_prev_p: Optional[torch.Tensor],
+                       g_prev: Sequence[Optional[torch.Tensor]],
+                       curr_f: torch.Tensor, f_maps: Optional[torch.Tensor],
+                       deeper_hw: Optional[Tuple[int, int]], num_cuts: int,
+                       normalize: bool):
+    """The gradients of ``glue_prep``'s inputs (plain): ``(d curr_f, d
+    f_maps, d deeper)`` from those of its outputs ``curr_p``, ``prev_p``
+    and ``prev = (depth, parallax, other)``, each None where no gradient
+    flows (``d deeper`` a tuple, or None without a deeper estimate). The
+    features' through the per-cut normalisation (``curr_f``, ``f_maps``:
+    the forward's features), the deeper estimate's through the transpose
+    of the TFv1 resize from ``deeper_hw`` (the parallax's doubled). The
+    previous depth, the motion and the camera get none."""
+    d_curr = _prep_features_backward(g_curr_p, curr_f, num_cuts, normalize)
+    d_prev = (None if f_maps is None else
+              _prep_features_backward(g_prev_p, f_maps, num_cuts, normalize))
+    if deeper_hw is None:
+        return d_curr, d_prev, None
+    g_depth, g_para, g_other = g_prev
+    up = [None if g is None else resize_bilinear_v1_transpose(g, deeper_hw)
+          for g in (g_depth, None if g_para is None else g_para * 2.0,
+                    g_other)]
+    return d_curr, d_prev, tuple(up)
+
+
+def glue_assemble_backward(g: torch.Tensor, parallax: torch.Tensor,
+                           para_reproj: Optional[torch.Tensor], n_cv: int,
+                           n_other: int, n_sncv: int, para_mul: float,
+                           wanted: Sequence[bool]):
+    """The gradients of ``glue_assemble``'s inputs (plain): ``(d cv, d
+    parallax, d other, d sncv, d para_reproj)`` in float32 from ``g``,
+    that of the refiner's input [b, h, w, n], each None where ``wanted``
+    says no (or its map was left out: ``n_other``, ``n_sncv`` 0,
+    ``para_reproj`` None). A log-parallax channel's as ``g / v *
+    para_mul`` with ``v = x * para_mul`` where ``v >= 1e-12`` (the log's
+    clamp), else 0."""
+    g = g.float()
+    widths = (n_cv, 1, n_other, n_sncv, int(para_reproj is not None))
+    parts = torch.split(g, widths, dim=-1)
+
+    def log_back(x, gx):
+        v = x * para_mul
+        return torch.where(v >= 1e-12, gx / v, 0.0) * para_mul
+
+    grads = (parts[0], log_back(parallax, parts[1]), parts[2], parts[3],
+             None if para_reproj is None else log_back(para_reproj,
+                                                       parts[4]))
+    return tuple(
+        d.contiguous() if want and n and d is not None else None
+        for d, want, n in zip(grads, wanted, widths))
+
+
+def glue_finish_backward(g_est: Sequence[Optional[torch.Tensor]],
+                         out: torch.Tensor, rot: torch.Tensor,
+                         trans: torch.Tensor, camera: Camera,
+                         para_mul: float) -> torch.Tensor:
+    """The gradient of ``glue_finish``'s ``out`` (plain, no reset) from
+    those of its estimate ``g_est = (depth, parallax, other)`` (None:
+    zero), in ``out``'s dtype: the memory channels' as given, ``out_0``'s
+    as ``(g_para + g_depth d depth / d para) exp(out_0) / para_mul`` inside
+    [-7, 7] (0 outside: the clip), with ``d depth / d para = -(rho / para)
+    / para / alpha`` (``epipolar_terms``)."""
+    g_depth, g_para, g_other = g_est
+    o = out.float()
+    c0 = o[..., :1]
+    ex = torch.exp(torch.clamp(c0, -7.0, 7.0))
+    para = ex / para_mul
+    gp = torch.zeros_like(para) if g_para is None else g_para
+    if g_depth is not None:
+        e = epipolar_terms(out.shape[1], out.shape[2], rot, trans, camera)
+        gp = gp - (g_depth / e.alpha) * ((e.rho / para) / para)
+    d0 = torch.where((c0 >= -7.0) & (c0 <= 7.0), gp / para_mul * ex, 0.0)
+    d_other = torch.zeros_like(o[..., 1:]) if g_other is None else g_other
+    return torch.cat([d0, d_other], dim=-1).to(out.dtype)
+
+
 # -- the kernels ---------------------------------------------------------
 
 
@@ -179,11 +310,16 @@ def _on_cpu(tensors) -> bool:
     return all(t.device.type == "cpu" for t in tensors)
 
 
-def _refuse_grad(name: str, tensors) -> None:
-    if any(t.requires_grad for t in tensors):
-        raise ValueError(f"{name}: the CUDA kernel has no backward, and an "
-                         "input requires grad (the decoder calls it with "
-                         "grad disabled only)")
+def _differentiates(tensors) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def _refuse_grad(name: str, what: str, tensors) -> None:
+    """Raise if grad is enabled and one of ``tensors`` requires it: the
+    kernels give ``what`` no gradient."""
+    if _differentiates(tensors):
+        raise ValueError(f"{name}: the CUDA kernels give {what} no "
+                         "gradient, and one of them requires grad")
 
 
 def _motion(name, device, *pairs):
@@ -202,6 +338,80 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
+def _launch_prep(curr_f, f_maps, depth, deeper, trans, f, c, scale,
+                 num_cuts, normalize, n_other, init_depth, cv_dtype):
+    """Launch ``glue_prep`` on checked inputs: (prev, cam [2, b, 2],
+    curr_p, prev_p, para), the last three None without ``f_maps``."""
+    dev = curr_f.device
+    b, h, w, C = curr_f.shape
+    kw = dict(dtype=torch.float32, device=dev)
+    cam = torch.empty((2, b, 2), **kw)
+    prev = (torch.empty((b, h, w, 1), **kw), torch.empty((b, h, w, 1), **kw),
+            torch.empty((b, h, w, n_other), **kw))
+    hd, wd = (0, 0) if deeper is None else deeper[0].shape[1:3]
+    curr_p = prev_p = para = None
+    if f_maps is not None:
+        curr_p = torch.empty(curr_f.shape, dtype=cv_dtype, device=dev)
+        prev_p = torch.empty(curr_f.shape, dtype=cv_dtype, device=dev)
+        para = torch.empty((b, h, w, 1), dtype=cv_dtype, device=dev)
+    GLUE_PREP_KERNEL.launch(
+        curr_f.data_ptr(), _ptr(f_maps), _ptr(depth),
+        *(_ptr(t) for t in (deeper or (None,) * 3)), trans.data_ptr(),
+        f.data_ptr(), c.data_ptr(), cam.data_ptr(),
+        *(t.data_ptr() for t in prev), _ptr(curr_p), _ptr(prev_p),
+        _ptr(para), b, h, w, C, num_cuts, hd, wd, n_other, int(normalize),
+        float(scale), hd / h if hd else 0.0, wd / w if wd else 0.0,
+        float(init_depth), CONV_DTYPES.index(curr_f.dtype),
+        KERNEL_DTYPES.index(cv_dtype), _stream(curr_f), device=dev)
+    return prev, cam, curr_p, prev_p, para
+
+
+class GluePrepFunction(torch.autograd.Function):
+    """``glue_prep``'s kernel with ``glue_prep_backward``'s: gradients for
+    the features (``curr_f``, ``f_maps``) and the deeper estimate. It saves
+    the features alone: the backward recomputes the cuts' norms, and the
+    resize's transpose needs only the deeper estimate's size. The outputs
+    are ``(*prev, cam, curr_p, prev_p, para)`` (the last three without
+    ``f_maps``); ``cam`` and ``para`` (the detached parallax of the
+    previous depth) carry no gradient, nor an output whose inputs require
+    none (``prev`` at the deepest level)."""
+
+    @staticmethod
+    def forward(ctx, curr_f, f_maps, depth, deep_depth, deep_para,
+                deep_other, trans, f, c, scale, num_cuts, normalize,
+                n_other, init_depth, cv_dtype):
+        deeper = None if deep_depth is None else (deep_depth, deep_para,
+                                                  deep_other)
+        prev, cam, curr_p, prev_p, para = _launch_prep(
+            curr_f, f_maps, depth, deeper, trans, f, c, scale, num_cuts,
+            normalize, n_other, init_depth, cv_dtype)
+        ctx.set_materialize_grads(False)
+        # what no differentiated input reaches carries no gradient
+        need = ctx.needs_input_grad
+        ctx.mark_non_differentiable(cam, *(
+            t for t, n in ((para, False), (curr_p, need[0]),
+                           (prev_p, need[1]), *((p, any(need[3:6]))
+                                                for p in prev))
+            if t is not None and not n))
+        ctx.save_for_backward(curr_f, f_maps)
+        ctx.args = (None if deeper is None else tuple(deep_depth.shape[1:3]),
+                    num_cuts, normalize)
+        return (*prev, cam) + (() if f_maps is None else
+                               (curr_p, prev_p, para))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        curr_f, f_maps = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        g_curr, g_prev = (grads[4:6] if f_maps is not None
+                          else (None, None))
+        d_curr, d_prev, deeper = glue_prep_backward_fused(
+            g_curr if need[0] else None, g_prev if need[1] else None,
+            tuple(g if n else None for g, n in zip(grads[:3], need[3:6])),
+            curr_f, f_maps, *ctx.args)
+        return (d_curr, d_prev, None, *(deeper or (None,) * 3)) + (None,) * 9
+
+
 def glue_prep_fused(curr_f: torch.Tensor,
                     deeper: Optional[Sequence[torch.Tensor]],
                     state: Optional[Sequence[torch.Tensor]],
@@ -210,13 +420,15 @@ def glue_prep_fused(curr_f: torch.Tensor,
                     init_depth: float, cv_dtype: torch.dtype) -> Prepared:
     """:func:`glue_prep` on CPU tensors; on CUDA ones ``glue_prep`` of
     ``csrc/glue.cu``, whose features and previous parallax are in
-    ``cv_dtype``."""
+    ``cv_dtype``, through ``GluePrepFunction`` where grad is enabled and
+    the features (with a state) or the deeper estimate require grad."""
     tensors = [curr_f, trans, camera.f, camera.c, *(deeper or ()),
                *(state or ())]
     if _on_cpu(tensors):
         return glue_prep(curr_f, deeper, state, trans, camera, scale,
                          num_cuts, normalize, n_other, init_depth, cv_dtype)
-    _refuse_grad("glue_prep", tensors)
+    _refuse_grad("glue_prep", "the motion and the camera",
+                 [trans, camera.f, camera.c])
     dev = curr_f.device
     if curr_f.dim() != 4:
         raise ValueError(f"glue_prep: curr_f must be [b, h, w, C], got "
@@ -231,11 +443,6 @@ def glue_prep_fused(curr_f: torch.Tensor,
     check_kernel_inputs("glue_prep", (curr_f,), CONV_DTYPES, dev)
     trans, f, c = _motion("glue_prep", dev, (trans, [(b, 3)]),
                           (camera.f, [(b, 2)]), (camera.c, [(b, 2)]))
-    kw = dict(dtype=torch.float32, device=dev)
-    cam = torch.empty((2, b, 2), **kw)
-    prev = (torch.empty((b, h, w, 1), **kw), torch.empty((b, h, w, 1), **kw),
-            torch.empty((b, h, w, n_other), **kw))
-    hd = wd = 0
     if deeper is not None:
         check_kernel_inputs("glue_prep", deeper, (torch.float32,), dev)
         hd, wd = deeper[0].shape[1:3]
@@ -243,7 +450,7 @@ def glue_prep_fused(curr_f: torch.Tensor,
                 (b, hd, wd, n) for n in (1, 1, n_other)):
             raise ValueError(f"glue_prep: the deeper estimate must be "
                              f"[{b}, hd, wd, 1 | 1 | {n_other}]")
-    curr_p = prev_p = para = f_maps = depth = None
+    f_maps = depth = None
     if state is not None:
         f_maps, depth = state
         check_kernel_inputs("glue_prep", (f_maps,), (curr_f.dtype,), dev)
@@ -251,19 +458,110 @@ def glue_prep_fused(curr_f: torch.Tensor,
         if f_maps.shape != curr_f.shape or depth.shape != (b, h, w, 1):
             raise ValueError(f"glue_prep: the state must be [{b}, {h}, {w}, "
                              f"{C}] and [{b}, {h}, {w}, 1]")
-        curr_p = torch.empty(curr_f.shape, dtype=cv_dtype, device=dev)
-        prev_p = torch.empty(curr_f.shape, dtype=cv_dtype, device=dev)
-        para = torch.empty((b, h, w, 1), dtype=cv_dtype, device=dev)
-    GLUE_PREP_KERNEL.launch(
-        curr_f.data_ptr(), _ptr(f_maps), _ptr(depth),
-        *(_ptr(t) for t in (deeper or (None,) * 3)), trans.data_ptr(),
-        f.data_ptr(), c.data_ptr(), cam.data_ptr(),
-        *(t.data_ptr() for t in prev), _ptr(curr_p), _ptr(prev_p),
-        _ptr(para), b, h, w, C, num_cuts, hd, wd, n_other, int(normalize),
-        float(scale), hd / h if hd else 0.0, wd / w if wd else 0.0,
-        float(init_depth), CONV_DTYPES.index(curr_f.dtype),
-        KERNEL_DTYPES.index(cv_dtype), _stream(curr_f), device=dev)
-    return prev, Camera(f=cam[0], c=cam[1]), curr_p, prev_p, para
+    args = (trans, f, c, scale, num_cuts, normalize, n_other, init_depth,
+            cv_dtype)
+    if not _differentiates([*(deeper or ()), *((curr_f, f_maps)
+                                               if state is not None
+                                               else ())]):
+        prev, cam, curr_p, prev_p, para = _launch_prep(
+            curr_f, f_maps, depth, deeper, *args)
+        return prev, Camera(f=cam[0], c=cam[1]), curr_p, prev_p, para
+    out = GluePrepFunction.apply(curr_f, f_maps, depth,
+                                 *(deeper or (None,) * 3), *args)
+    curr_p, prev_p, para = out[4:] if state is not None else (None,) * 3
+    return (tuple(out[:3]), Camera(f=out[3][0], c=out[3][1]), curr_p,
+            prev_p, para)
+
+
+def glue_prep_backward_fused(g_curr_p, g_prev_p, g_prev, curr_f, f_maps,
+                             deeper_hw, num_cuts, normalize):
+    """:func:`glue_prep_backward` on CPU tensors; on CUDA ones
+    ``glue_prep_backward`` of ``csrc/glue_backward.cu``, one launch for
+    every gradient that flows (none where none does)."""
+    tensors = [curr_f, *(t for t in (g_curr_p, g_prev_p, f_maps, *g_prev)
+                         if t is not None)]
+    if _on_cpu(tensors):
+        return glue_prep_backward(g_curr_p, g_prev_p, g_prev, curr_f, f_maps,
+                                  deeper_hw, num_cuts, normalize)
+    dev = curr_f.device
+    b, h, w, C = curr_f.shape
+    if f_maps is None:
+        g_prev_p = None
+    g_feat = [None if g is None else g.contiguous()
+              for g in (g_curr_p, g_prev_p)]
+    if deeper_hw is None:
+        g_prev = (None,) * 3
+    g_deep = [None if g is None else g.float().contiguous() for g in g_prev]
+    if all(g is None for g in g_feat + g_deep):
+        return None, None, None if deeper_hw is None else (None,) * 3
+    cv_dtype = next(g.dtype for g in g_feat + [curr_f] if g is not None)
+    check_kernel_inputs("glue_prep_backward",
+                        [g for g in g_feat if g is not None],
+                        (cv_dtype,), dev)
+    check_kernel_inputs("glue_prep_backward", [curr_f] + (
+        [] if f_maps is None else [f_maps]), (curr_f.dtype,), dev)
+    check_kernel_inputs("glue_prep_backward",
+                        [g for g in g_deep if g is not None],
+                        (torch.float32,), dev)
+    hd, wd = deeper_hw or (0, 0)
+    n_other = 0 if g_deep[2] is None else g_deep[2].shape[3]
+    d_feat = [None if g is None else torch.empty_like(x)
+              for g, x in zip(g_feat, (curr_f, f_maps))]
+    kw = dict(dtype=torch.float32, device=dev)
+    d_deep = [None if g is None else torch.empty((b, hd, wd, g.shape[3]),
+                                                 **kw)
+              for g in g_deep]
+    GLUE_PREP_BACKWARD_KERNEL.launch(
+        *(_ptr(t) for t in (*g_feat, curr_f, f_maps, *g_deep, *d_feat,
+                            *d_deep)),
+        b, h, w, C, num_cuts, hd, wd, n_other, int(normalize),
+        hd / h if hd else 0.0, wd / w if wd else 0.0,
+        CONV_DTYPES.index(curr_f.dtype), KERNEL_DTYPES.index(cv_dtype),
+        _stream(curr_f), device=dev)
+    return d_feat[0], d_feat[1], None if deeper_hw is None else tuple(d_deep)
+
+
+def _launch_assemble(cv, parallax, other, sncv, para_reproj, para_mul,
+                     dtype) -> torch.Tensor:
+    """Launch ``glue_assemble`` on checked inputs."""
+    b, h, w, n_cv = cv.shape
+    n_other = 0 if other is None else other.shape[3]
+    n_sncv = 0 if sncv is None else sncv.shape[3]
+    recurr = int(para_reproj is not None)
+    n = n_cv + 1 + n_other + n_sncv + recurr
+    f_input = torch.empty((b, h, w, n), dtype=dtype, device=cv.device)
+    GLUE_ASSEMBLE_KERNEL.launch(
+        cv.data_ptr(), parallax.data_ptr(), _ptr(other), _ptr(sncv),
+        _ptr(para_reproj), f_input.data_ptr(), b * h * w, n_cv, n_other,
+        n_sncv, recurr, float(para_mul), CONV_DTYPES.index(dtype),
+        _stream(cv), device=cv.device)
+    return f_input
+
+
+class GlueAssembleFunction(torch.autograd.Function):
+    """``glue_assemble``'s kernel with ``glue_assemble_backward``'s:
+    gradients for every map it reads. It saves the two parallax maps, the
+    only inputs the backward reads."""
+
+    @staticmethod
+    def forward(ctx, cv, parallax, other, sncv, para_reproj, para_mul,
+                dtype):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(parallax, para_reproj)
+        ctx.widths = tuple(0 if t is None else t.shape[3]
+                           for t in (cv, other, sncv))
+        ctx.para_mul = para_mul
+        return _launch_assemble(cv, parallax, other, sncv, para_reproj,
+                                para_mul, dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        if g is None:
+            return (None,) * 7
+        parallax, para_reproj = ctx.saved_tensors
+        return glue_assemble_backward_fused(
+            g, parallax, para_reproj, *ctx.widths, ctx.para_mul,
+            ctx.needs_input_grad[:5]) + (None, None)
 
 
 def glue_assemble_fused(cv: torch.Tensor, parallax: torch.Tensor,
@@ -272,35 +570,98 @@ def glue_assemble_fused(cv: torch.Tensor, parallax: torch.Tensor,
                         para_reproj: Optional[torch.Tensor], para_mul: float,
                         dtype: torch.dtype) -> torch.Tensor:
     """:func:`glue_assemble` on CPU tensors; on CUDA ones
-    ``glue_assemble`` of ``csrc/glue.cu``."""
+    ``glue_assemble`` of ``csrc/glue.cu``, through
+    ``GlueAssembleFunction`` where grad is enabled and a map requires
+    grad."""
     maps = [t for t in (cv, parallax, other, sncv, para_reproj)
             if t is not None]
     if _on_cpu(maps):
         return glue_assemble(cv, parallax, other, sncv, para_reproj,
                              para_mul, dtype)
-    _refuse_grad("glue_assemble", maps)
     if dtype not in CONV_DTYPES:
         raise TypeError(f"glue_assemble: dtype {dtype} not in "
                         f"{CONV_DTYPES}")
-    dev = cv.device
-    check_kernel_inputs("glue_assemble", maps, (torch.float32,), dev)
-    b, h, w, n_cv = cv.shape
-    n_other = 0 if other is None else other.shape[3]
-    n_sncv = 0 if sncv is None else sncv.shape[3]
+    check_kernel_inputs("glue_assemble", maps, (torch.float32,), cv.device)
+    b, h, w, _ = cv.shape
     ones = [t for t in (parallax, para_reproj) if t is not None]
     if any(t.shape[:3] != (b, h, w) for t in maps) or any(
             t.shape[3] != 1 for t in ones):
         raise ValueError(f"glue_assemble: the maps must all be [{b}, {h}, "
                          f"{w}, n], the parallax ones n = 1")
-    recurr = int(para_reproj is not None)
-    n = n_cv + 1 + n_other + n_sncv + recurr
-    f_input = torch.empty((b, h, w, n), dtype=dtype, device=dev)
-    GLUE_ASSEMBLE_KERNEL.launch(
-        cv.data_ptr(), parallax.data_ptr(), _ptr(other), _ptr(sncv),
-        _ptr(para_reproj), f_input.data_ptr(), b * h * w, n_cv, n_other,
-        n_sncv, recurr, float(para_mul), CONV_DTYPES.index(dtype),
-        _stream(cv), device=dev)
-    return f_input
+    args = (cv, parallax, other, sncv, para_reproj, para_mul, dtype)
+    if _differentiates(maps):
+        return GlueAssembleFunction.apply(*args)
+    return _launch_assemble(*args)
+
+
+def glue_assemble_backward_fused(g, parallax, para_reproj, n_cv, n_other,
+                                 n_sncv, para_mul, wanted):
+    """:func:`glue_assemble_backward` on CPU tensors; on CUDA ones
+    ``glue_assemble_backward`` of ``csrc/glue_backward.cu``."""
+    if _on_cpu([g, parallax]):
+        return glue_assemble_backward(g, parallax, para_reproj, n_cv,
+                                      n_other, n_sncv, para_mul, wanted)
+    dev = g.device
+    g = g.contiguous()
+    check_kernel_inputs("glue_assemble_backward", (g,), CONV_DTYPES, dev)
+    b, h, w, _ = g.shape
+    widths = (n_cv, 1, n_other, n_sncv, int(para_reproj is not None))
+    grads = tuple(
+        torch.empty((b, h, w, n), dtype=torch.float32, device=dev)
+        if want and n else None for want, n in zip(wanted, widths))
+    if all(d is None for d in grads):
+        return grads
+    GLUE_ASSEMBLE_BACKWARD_KERNEL.launch(
+        g.data_ptr(), parallax.data_ptr(), _ptr(para_reproj),
+        *(_ptr(d) for d in grads), b * h * w, n_cv, n_other, n_sncv,
+        widths[4], float(para_mul), CONV_DTYPES.index(g.dtype), _stream(g),
+        device=dev)
+    return grads
+
+
+def _launch_finish(out, prev, reset, rot, trans, f, c, para_mul,
+                   init_depth) -> Tuple[Maps, torch.Tensor]:
+    """Launch ``glue_finish`` on checked inputs."""
+    b, h, w, n = out.shape
+    kw = dict(dtype=torch.float32, device=out.device)
+    est = (torch.empty((b, h, w, 1), **kw), torch.empty((b, h, w, 1), **kw),
+           torch.empty((b, h, w, n - 1), **kw))
+    next_depth = None if reset is None else torch.empty_like(est[0])
+    GLUE_FINISH_KERNEL.launch(
+        out.data_ptr(), *(t.data_ptr() for t in prev), _ptr(reset),
+        rot.data_ptr(), trans.data_ptr(), f.data_ptr(), c.data_ptr(),
+        *(t.data_ptr() for t in est), _ptr(next_depth), b, h, w, n - 1,
+        rot.shape[1], float(para_mul), float(init_depth),
+        CONV_DTYPES.index(out.dtype), _stream(out), device=out.device)
+    return est, est[0] if next_depth is None else next_depth
+
+
+class GlueFinishFunction(torch.autograd.Function):
+    """``glue_finish``'s kernel without a reset, with
+    ``glue_finish_backward``'s: the gradient of the refiner's output
+    ``out`` from those of the estimate (the depth the next frame reads is
+    the estimate's). It saves ``out`` and the motion: the backward
+    recomputes the parallax and the epipolar terms."""
+
+    @staticmethod
+    def forward(ctx, out, prev_depth, prev_para, prev_other, rot, trans, f,
+                c, para_mul, init_depth):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(out, rot, trans, f, c)
+        ctx.para_mul = para_mul
+        est, _ = _launch_finish(out, (prev_depth, prev_para, prev_other),
+                                None, rot, trans, f, c, para_mul,
+                                init_depth)
+        return est
+
+    @staticmethod
+    def backward(ctx, *g_est):
+        if all(g is None for g in g_est):
+            return (None,) * 10
+        out, rot, trans, f, c = ctx.saved_tensors
+        return (glue_finish_backward_fused(g_est, out, rot, trans,
+                                           Camera(f, c), ctx.para_mul),
+                ) + (None,) * 9
 
 
 def glue_finish_fused(out: torch.Tensor, prev: Sequence[torch.Tensor],
@@ -308,13 +669,18 @@ def glue_finish_fused(out: torch.Tensor, prev: Sequence[torch.Tensor],
                       trans: torch.Tensor, camera: Camera, para_mul: float,
                       init_depth: float) -> Tuple[Maps, torch.Tensor]:
     """:func:`glue_finish` on CPU tensors; on CUDA ones ``glue_finish`` of
-    ``csrc/glue.cu``, which reads ``out`` in its own dtype."""
+    ``csrc/glue.cu``, which reads ``out`` in its own dtype, through
+    ``GlueFinishFunction`` where grad is enabled and ``out`` requires grad
+    (without a reset: a reset under grad raises)."""
     tensors = [out, *prev, rot, trans, camera.f, camera.c] + (
         [] if reset is None else [reset])
     if _on_cpu(tensors):
         return glue_finish(out, prev, reset, rot, trans, camera, para_mul,
                            init_depth)
-    _refuse_grad("glue_finish", tensors)
+    _refuse_grad("glue_finish", "the motion and the camera",
+                 [rot, trans, camera.f, camera.c])
+    if reset is not None:
+        _refuse_grad("glue_finish", "a reset estimate", tensors)
     dev = out.device
     check_kernel_inputs("glue_finish", (out,), CONV_DTYPES, dev)
     check_kernel_inputs("glue_finish", prev, (torch.float32,), dev)
@@ -333,14 +699,29 @@ def glue_finish_fused(out: torch.Tensor, prev: Sequence[torch.Tensor],
         check_kernel_inputs("glue_finish", (reset,), (torch.bool,), dev)
         if reset.shape != (b,):
             raise ValueError(f"glue_finish: reset must be [{b}]")
-    kw = dict(dtype=torch.float32, device=dev)
-    est = (torch.empty((b, h, w, 1), **kw), torch.empty((b, h, w, 1), **kw),
-           torch.empty((b, h, w, n - 1), **kw))
-    next_depth = None if reset is None else torch.empty_like(est[0])
-    GLUE_FINISH_KERNEL.launch(
-        out.data_ptr(), *(t.data_ptr() for t in prev), _ptr(reset),
-        rot.data_ptr(), trans.data_ptr(), f.data_ptr(), c.data_ptr(),
-        *(t.data_ptr() for t in est), _ptr(next_depth), b, h, w, n - 1,
-        rot.shape[1], float(para_mul), float(init_depth),
+    if not _differentiates([out]):
+        return _launch_finish(out, prev, reset, rot, trans, f, c, para_mul,
+                              init_depth)
+    est = GlueFinishFunction.apply(out, *prev, rot, trans, f, c, para_mul,
+                                   init_depth)
+    return tuple(est), est[0]
+
+
+def glue_finish_backward_fused(g_est, out, rot, trans, camera, para_mul):
+    """:func:`glue_finish_backward` on CPU tensors; on CUDA ones
+    ``glue_finish_backward`` of ``csrc/glue_backward.cu``."""
+    if _on_cpu([out, rot, trans, camera.f, camera.c]):
+        return glue_finish_backward(g_est, out, rot, trans, camera, para_mul)
+    dev = out.device
+    g_est = [None if g is None else g.float().contiguous() for g in g_est]
+    check_kernel_inputs("glue_finish_backward",
+                        [g for g in g_est if g is not None],
+                        (torch.float32,), dev)
+    b, h, w, n = out.shape
+    d_out = torch.empty_like(out)
+    GLUE_FINISH_BACKWARD_KERNEL.launch(
+        *(_ptr(g) for g in g_est), out.data_ptr(), rot.data_ptr(),
+        trans.data_ptr(), camera.f.data_ptr(), camera.c.data_ptr(),
+        d_out.data_ptr(), b, h, w, n - 1, rot.shape[1], float(para_mul),
         CONV_DTYPES.index(out.dtype), _stream(out), device=dev)
-    return est, est[0] if next_depth is None else next_depth
+    return d_out

@@ -9,6 +9,7 @@ to print.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
@@ -17,8 +18,13 @@ import torch
 from m4depth_tpu_torch.config import ModelConfig, TrainConfig
 from m4depth_tpu_torch.geometry import Camera, parallax_sweep_flows
 from m4depth_tpu_torch.models import M4Depth
-from m4depth_tpu_torch.ops import spatial_cost_volume
-from m4depth_tpu_torch.train import make_optimizer, make_train_step
+from m4depth_tpu_torch.ops import glue, spatial_cost_volume
+from m4depth_tpu_torch.train import (
+    TrainState,
+    compile_train_step,
+    make_optimizer,
+    make_train_step,
+)
 
 # Forward kernels against their plain versions. Both sides round their
 # inputs to the same dtype and multiply and add in float32.
@@ -69,6 +75,23 @@ EVAL_METRIC_TOL = dict(rtol=1e-5, atol=1e-6)
 # rounded to: features of bfloat16 convs rounded on to float16 cost
 # volumes keep bfloat16's spacing (one bfloat16 ulp is 8 of float16).
 GLUE_ULPS = 1
+
+# The glue's backward kernels (ops/csrc/glue_backward.cu) against their
+# plain versions (ops/glue.py), and those against autograd of the plain
+# forwards, as (rtol, atol as a fraction of the largest reference value), by
+# the gradient's dtype.
+#   float32: the same terms summed in other orders (a cut's sum of squares
+#     and of products with the gradient, the normalisation's three terms,
+#     the resize's taps), and, on the card, CUDA's rsqrtf and the depth's
+#     epipolar terms from the DSCV kernels' contracted arithmetic: a few
+#     float32 ulps of the largest term; where the terms cancel (a gradient
+#     along the normalised cut) the atol of 1e-5 of the largest value holds
+#     that remainder.
+#   bfloat16 (the features' and the refiner output's gradients): both sides
+#     round one float32 value to bfloat16, so one ulp apart at most, 2^-7
+#     of the value, as BWD_TOL's.
+GLUE_BWD_TOL = {torch.float32: (1e-5, 1e-5),
+                torch.bfloat16: (2.0 ** -7, 2.0 ** -7)}
 
 # Backward kernels against autograd of the plain forward, as (rtol, atol as
 # a fraction of the largest reference value).
@@ -358,3 +381,61 @@ def assert_step_close(got: dict, ref: dict, lr: float, what: str) -> dict:
              f"{what}: loss {loss} against {ref_loss}")
     return assert_train_step_close(got["grads"], ref["grads"], got["params"],
                                    ref["params"], lr)
+
+
+@contextlib.contextmanager
+def plain_glue():
+    """The decoder runs the plain glue in place of the fused wrappers, on
+    any device and in any grad mode."""
+    from m4depth_tpu_torch.models import decoder
+
+    names = ("glue_prep_fused", "glue_assemble_fused", "glue_finish_fused")
+    saved = [getattr(decoder, n) for n in names]
+    for n in names:
+        setattr(decoder, n, getattr(glue, n[:-len("_fused")]))
+    try:
+        yield
+    finally:
+        for n, fn in zip(names, saved):
+            setattr(decoder, n, fn)
+
+
+def _step_result(step, model, batch) -> dict:
+    scalars = step(batch)
+    return dict(scalars={n: v.item() for n, v in scalars.items()},
+                grads={n: p.grad.cpu() for n, p in model.named_parameters()},
+                params={n: p.detach().cpu()
+                        for n, p in model.named_parameters()})
+
+
+def assert_glue_steps_close(dev, steps: int = 3, b: int = 2, T: int = 3,
+                            hw: int = 128, seed: int = 9,
+                            **cfg_kw) -> list:
+    """``steps`` compiled training steps of the float32 d6 model at ``hw``
+    (its eager first call, the capture, replays: the glue kernels and their
+    backwards; ``cfg_kw`` adds model settings, such as remat), each held by
+    ``assert_step_close`` to one eager step with the plain glue
+    (``plain_glue``) from the compiled run's state before it (weights, Adam
+    state, count). Returns each step's ``assert_train_step_close``
+    result."""
+    cfg = ModelConfig(compute_dtype="float32", cv_dtype="float32", **cfg_kw)
+    batch = train_batch(b, T, hw, seed, [1.0, 0.001, -0.002, 0.001],
+                        [0.3, 0.1, 0.02], dev)
+    models = {k: M4Depth(cfg, device=dev, seed=seed)
+              for k in ("kernels", "plain")}
+    opts = {k: make_optimizer(m, TrainConfig(learning_rate=1e-4))
+            for k, m in models.items()}
+    kernels = compile_train_step(models["kernels"], opts["kernels"])
+    plain = make_train_step(models["plain"], opts["plain"])
+    out = []
+    for i in range(steps):
+        if i:
+            TrainState(models["plain"], opts["plain"]).load_state_dict(
+                TrainState(models["kernels"], opts["kernels"]).state_dict())
+        got = _step_result(kernels, models["kernels"], batch)
+        with plain_glue():
+            want = _step_result(plain, models["plain"], batch)
+        out.append(assert_step_close(got, want, 1e-4, f"step {i + 1} of "
+                                     f"{steps}, glue kernels against the "
+                                     f"plain glue {cfg_kw or ''}"))
+    return out

@@ -43,8 +43,8 @@ device work (the profiler also draws such a range on the device timeline).
 ``compiled.captures`` count the calls that ran eagerly and those that
 captured (and replayed once), so neither enters a replay's mean.
 ``decoder.glue_fused`` and ``decoder.glue_plain`` (``tally``, untimed)
-count ``DecoderLevel`` calls by the glue they ran: its kernels (grad
-disabled) or its plain version. They count in Python, so a captured
+count ``DecoderLevel`` calls by the glue they ran: its kernels (on CUDA
+tensors, with grad or without) or its plain version (on CPU tensors). They count in Python, so a captured
 graph counts its levels once, at its capture, and a replay none.
 """
 

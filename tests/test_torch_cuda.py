@@ -25,8 +25,11 @@ from m4depth_tpu_torch.models import M4Depth, init_state
 from m4depth_tpu_torch.ops import (
     DSCV_BACKWARD_KERNEL,
     DSCV_KERNEL,
+    GLUE_ASSEMBLE_BACKWARD_KERNEL,
     GLUE_ASSEMBLE_KERNEL,
+    GLUE_FINISH_BACKWARD_KERNEL,
     GLUE_FINISH_KERNEL,
+    GLUE_PREP_BACKWARD_KERNEL,
     GLUE_PREP_KERNEL,
     SNCV_BACKWARD_KERNEL,
     SNCV_KERNEL,
@@ -41,15 +44,19 @@ from m4depth_tpu_torch.ops.sncv import KERNEL_DTYPES, _sncv_backward
 from m4depth_tpu_torch.testing import (
     DSCV_CV_TOL,
     DSCV_PARA_TOL,
+    GLUE_BWD_TOL,
     MODEL_TOL,
     SNCV_TOL,
     STEP_LOSS_RTOL,
     V1_SNCV_EDGE_SHAPES,
     assert_bf16_depth_close,
     assert_dscv_grads_close,
+    assert_glue_steps_close,
+    assert_grad_close,
     assert_sncv_grads_close,
     assert_train_step_close,
     assert_within_ulps,
+    plain_glue,
     sncv_plain_grads,
     tie_free_pixels,
 )
@@ -985,6 +992,9 @@ GLUE_SHAPES = [(b, i + 1, h, w, C, cuts) for b in (1, 3)
 GLUE_IDS = [f"b{b}-level{lv}-{h}x{w}" for b, lv, h, w, _, _ in GLUE_SHAPES]
 GLUE_OTHER = 4
 GLUE_KERNELS = (GLUE_PREP_KERNEL, GLUE_ASSEMBLE_KERNEL, GLUE_FINISH_KERNEL)
+GLUE_BACKWARD_KERNELS = (GLUE_PREP_BACKWARD_KERNEL,
+                         GLUE_ASSEMBLE_BACKWARD_KERNEL,
+                         GLUE_FINISH_BACKWARD_KERNEL)
 
 
 def _glue_inputs(b, level, h, w, C, rot_dim, dev, deepest, seed=0,
@@ -1118,46 +1128,201 @@ def test_glue_kernels_take_every_flag(cuda, deepest):
     _close_f32(tuple(est), tuple(west), "finish")
 
 
+def _glue_backward_inputs(b, level, h, w, C, cuts, dev, dtype, seed=0):
+    """A level's glue forward inputs (``_glue_inputs``, features in
+    ``dtype``, some cuts zero: the norm's clamp) and the gradients of its
+    outputs, as the training step hands them to the backward kernels: the
+    features' in the cost volumes' dtype (``dtype``), the resized deeper
+    estimate's parallax and memory (not its depth: only a reset reads it),
+    the refiner input's in ``dtype``, the estimate's three; the refiner's
+    output ``out`` with log parallaxes beyond the clip and on its bounds;
+    the maps that the refiner's input reads, with the log's clamp met."""
+    deepest = level == len(D6_LEVELS)
+    curr_f, deeper, state, rot, trans, cam, _ = _glue_inputs(
+        b, level, h, w, C, 4, dev, deepest, seed=seed, dtype=dtype)
+    cc = C // cuts
+    curr_f[:, ::5, ::3, :cc] = 0
+    state[0][:, 1::4, ::2, -cc:] = 0
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def rnd(*shape, dt=torch.float32):
+        return torch.randn(*shape, generator=g, device=dev).to(dt)
+
+    n = 9 * cuts + 1 + GLUE_OTHER + 49 * cuts + 1
+    out = rnd(b, h, w, 1 + GLUE_OTHER) * 4
+    out[:, ::7, ::5, 0] = 7.0
+    out[:, 1::7, ::5, 0] = -7.0
+    reproj = torch.rand(b, h, w, 1, generator=g, device=dev) * 5
+    reproj[:, ::3] = 0.0
+    return dict(
+        curr_f=curr_f, deeper=deeper, state=state, rot=rot, trans=trans,
+        cam=cam, g_curr=rnd(b, h, w, C, dt=dtype),
+        g_prev_p=rnd(b, h, w, C, dt=dtype),
+        g_prev=(None, rnd(b, h, w, 1), rnd(b, h, w, GLUE_OTHER)),
+        cv=rnd(b, h, w, 9 * cuts), sncv=rnd(b, h, w, 49 * cuts),
+        reproj=reproj, g_input=rnd(b, h, w, n, dt=dtype),
+        out=out.to(dtype), g_est=(rnd(b, h, w, 1), rnd(b, h, w, 1),
+                                  rnd(b, h, w, GLUE_OTHER)))
+
+
+def _glue_grads_close(got, want, what):
+    for i, (g, w) in enumerate(zip(got, want)):
+        if w is None:
+            assert g is None, (what, i)
+            continue
+        assert g.dtype == w.dtype and g.shape == w.shape, (what, i)
+        assert bool(torch.isfinite(w).all()), (what, i)
+        assert_grad_close(g, w, GLUE_BWD_TOL[w.dtype], f"{what}[{i}]")
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("shape", GLUE_SHAPES, ids=GLUE_IDS)
+def test_glue_backward_kernels_match_plain(cuda, shape, dtype):
+    """Each glue backward kernel against its plain version on the same
+    inputs and gradients (``GLUE_BWD_TOL``), at d6's level shapes with
+    b=1 and b=3 and the 7x7 level, features and cost volumes in
+    ``dtype``: the features' gradients (bfloat16 or float32), the deeper
+    estimate's, the maps' and the refiner output's; each kernel launches
+    once."""
+    b, level, h, w, C, cuts = shape
+    x = _glue_backward_inputs(b, level, h, w, C, cuts, cuda, dtype)
+    kernels = GLUE_BACKWARD_KERNELS
+    before = [k.launches for k in kernels]
+    hw = None if x["deeper"] is None else tuple(x["deeper"][0].shape[1:3])
+    args = (x["g_curr"], x["g_prev_p"], x["g_prev"], x["curr_f"],
+            x["state"][0], hw, cuts, True)
+    got, want = (glue.glue_prep_backward_fused(*args),
+                 glue.glue_prep_backward(*args))
+    _glue_grads_close(got[:2], want[:2], "prep features")
+    if hw is None:
+        assert got[2] is None and want[2] is None
+    else:
+        _glue_grads_close(got[2], want[2], "prep deeper")
+    prev, cam_l = glue.glue_prep(x["curr_f"], x["deeper"], x["state"],
+                                 x["trans"], x["cam"], 2.0 ** level, cuts,
+                                 True, GLUE_OTHER, 1000.0, dtype)[:2]
+    lvl_mul = 2.0 ** (level - 3)
+    args = (x["g_input"], prev[1], x["reproj"], 9 * cuts, GLUE_OTHER,
+            49 * cuts, lvl_mul, (True,) * 5)
+    _glue_grads_close(glue.glue_assemble_backward_fused(*args),
+                      glue.glue_assemble_backward(*args), "assemble")
+    for g_est in (x["g_est"], (None,) + x["g_est"][1:]):
+        args = (g_est, x["out"], x["rot"], x["trans"], cam_l, lvl_mul)
+        _glue_grads_close((glue.glue_finish_backward_fused(*args),),
+                          (glue.glue_finish_backward(*args),), "finish")
+    torch.cuda.synchronize()
+    assert [k.launches - n for k, n in zip(kernels, before)] == [1, 1, 2]
+
+
+@pytest.mark.parametrize("cv_dtype", [torch.bfloat16, torch.float16],
+                         ids=["bf16", "f16"])
+@pytest.mark.parametrize("shape", [s for s in GLUE_SHAPES if s[0] == 3],
+                         ids=[i for i, s in zip(GLUE_IDS, GLUE_SHAPES)
+                              if s[0] == 3])
+def test_glue_functions_match_autograd_of_plain(cuda, shape, cv_dtype):
+    """A level's glue through the fused wrappers with grad (the autograd
+    Functions: the kernels and their backwards), bfloat16 features, at
+    d6's level shapes with b=3: every input's gradient against autograd
+    of the plain glue on the same inputs and cotangents, by
+    ``GLUE_BWD_TOL`` at twice its rtol (the forward's roundings, one ulp
+    apart at most, feed the backward); each kernel launches once."""
+    b, level, h, w, C, cuts = shape
+    x = _glue_backward_inputs(b, level, h, w, C, cuts, cuda, torch.bfloat16,
+                              seed=1)
+    lvl_mul = 2.0 ** (level - 3)
+    leaves = [t.clone().requires_grad_() for t in (
+        x["curr_f"], x["state"][0], *(x["deeper"] or ()), x["cv"],
+        x["sncv"], x["reproj"], x["out"])]
+    grads = {}
+    for key, fns in (("fused", (glue.glue_prep_fused,
+                                glue.glue_assemble_fused,
+                                glue.glue_finish_fused)),
+                     ("plain", (glue.glue_prep, glue.glue_assemble,
+                                glue.glue_finish))):
+        curr_f, f_maps, *rest = leaves
+        deeper = tuple(rest[:3]) if x["deeper"] is not None else None
+        cv, sncv, reproj, out = rest[-4:]
+        prev, cam_l, curr_p, prev_p, _ = fns[0](
+            curr_f, deeper, (f_maps, x["state"][1]), x["trans"], x["cam"],
+            2.0 ** level, cuts, True, GLUE_OTHER, 1000.0, cv_dtype)
+        f_input = fns[1](cv, prev[1], prev[2], sncv, reproj, lvl_mul,
+                         torch.bfloat16)
+        est, _ = fns[2](out, prev, None, x["rot"], x["trans"], cam_l,
+                        lvl_mul, 1000.0)
+        outs = [curr_p.to(cv_dtype), prev_p.to(cv_dtype), prev[1], f_input,
+                *est]
+        cots = [x["g_curr"].to(cv_dtype), x["g_prev_p"].to(cv_dtype),
+                x["g_prev"][1], x["g_input"], *x["g_est"]]
+        keep = [i for i, o in enumerate(outs) if o.requires_grad]
+        before = [k.launches for k in GLUE_KERNELS + GLUE_BACKWARD_KERNELS]
+        grads[key] = torch.autograd.grad([outs[i] for i in keep], leaves,
+                                         [cots[i] for i in keep],
+                                         allow_unused=True)
+        torch.cuda.synchronize()
+        if key == "fused":
+            assert [k.launches - n for k, n in zip(
+                GLUE_KERNELS + GLUE_BACKWARD_KERNELS, before)] == [0] * 3 + [
+                    1] * 3
+    for i, (g, w) in enumerate(zip(grads["fused"], grads["plain"])):
+        if w is None:
+            # the deeper depth: only a reset reads the resized one
+            assert g is None, i
+            continue
+        assert g.dtype == w.dtype and g.shape == w.shape, i
+        rtol, atol = GLUE_BWD_TOL[w.dtype]
+        assert_grad_close(g, w, (2 * rtol, atol), f"leaf {i}")
+
+
+@pytest.mark.parametrize("remat", ["", "all", "dscv"])
+def test_compiled_train_step_with_glue_kernels_matches_plain_glue(cuda,
+                                                                   remat):
+    """Three compiled float32 training steps of d6 at 128x128 (b=2, T=3)
+    with the glue kernels and their backwards, without remat and with each
+    remat policy, each against an eager step with the plain glue from the
+    same state, by ``assert_step_close``."""
+    kw = dict(remat=True, remat_policy=remat) if remat else {}
+    res = assert_glue_steps_close(cuda, **kw)
+    assert len(res) == 3
+
+
 def test_glue_wrappers_raise_on_inputs_that_require_grad(cuda):
-    """A CUDA input that requires grad makes each fused wrapper raise: the
-    kernels have no backward, and nothing falls back to the plain
-    version."""
+    """Under grad, a CUDA motion or camera tensor that requires grad makes
+    the fused wrappers raise, and so does a reset given to
+    ``glue_finish_fused`` with an input that requires grad: the kernels
+    give neither a gradient, and nothing falls back to the plain version.
+    The features, the deeper estimate, the maps and the refiner's output
+    may require grad (the Functions differentiate them), and without grad
+    nothing raises."""
     b, level, h, w, C, cuts = GLUE_SHAPES[-1]
     curr_f, deeper, state, rot, trans, cam, new_traj = _glue_inputs(
         b, level, h, w, C, 4, cuda, False)
-    with pytest.raises(ValueError, match="no backward"):
-        glue.glue_prep_fused(curr_f.float().requires_grad_(), deeper, state,
-                             trans, cam, 2.0 ** level, cuts, True, GLUE_OTHER,
-                             1000.0, torch.bfloat16)
+    args = (2.0 ** level, cuts, True, GLUE_OTHER, 1000.0, torch.bfloat16)
+    with pytest.raises(ValueError, match="no gradient"):
+        glue.glue_prep_fused(curr_f, deeper, state,
+                             trans.clone().requires_grad_(), cam, *args)
+    with pytest.raises(ValueError, match="no gradient"):
+        glue.glue_prep_fused(curr_f, deeper, state, trans,
+                             Camera(cam.f.clone().requires_grad_(), cam.c),
+                             *args)
     prev, cam_l, _, _, _ = glue.glue_prep_fused(
-        curr_f, deeper, state, trans, cam, 2.0 ** level, cuts, True,
-        GLUE_OTHER, 1000.0, torch.bfloat16)
-    cv = torch.randn(b, h, w, 9 * cuts, device=cuda, requires_grad=True)
-    with pytest.raises(ValueError, match="no backward"):
-        glue.glue_assemble_fused(cv, prev[1], prev[2], None, prev[1], 1.0,
-                                 torch.bfloat16)
+        curr_f.clone().requires_grad_(), deeper, state, trans, cam, *args)
+    assert prev[1].requires_grad is False and not cam_l.f.requires_grad
     out = torch.randn(b, h, w, 1 + GLUE_OTHER, device=cuda,
                       requires_grad=True)
-    with pytest.raises(ValueError, match="no backward"):
+    with pytest.raises(ValueError, match="no gradient"):
         glue.glue_finish_fused(out, prev, new_traj, rot, trans, cam_l, 1.0,
                                1000.0)
-
-
-@contextlib.contextmanager
-def plain_glue():
-    """The decoder runs the plain glue in place of the fused wrappers, on
-    any device and in any grad mode."""
-    from m4depth_tpu_torch.models import decoder
-
-    names = ("glue_prep_fused", "glue_assemble_fused", "glue_finish_fused")
-    saved = [getattr(decoder, n) for n in names]
-    for n in names:
-        setattr(decoder, n, getattr(glue, n[:-len("_fused")]))
-    try:
-        yield
-    finally:
-        for n, fn in zip(names, saved):
-            setattr(decoder, n, fn)
+    with pytest.raises(ValueError, match="no gradient"):
+        glue.glue_finish_fused(out, prev, None, rot.clone().requires_grad_(),
+                               trans, cam_l, 1.0, 1000.0)
+    est, _ = glue.glue_finish_fused(out, prev, None, rot, trans, cam_l, 1.0,
+                                    1000.0)
+    assert est[0].requires_grad
+    with torch.no_grad():
+        glue.glue_finish_fused(out, prev, new_traj, rot,
+                               trans.clone().requires_grad_(), cam_l, 1.0,
+                               1000.0)
 
 
 D6_BF16 = dict(compute_dtype="bfloat16")
@@ -1255,9 +1420,13 @@ def test_compiled_d6_frame_replays_its_glue_kernels(cuda):
 
 
 def test_compiled_train_step_runs_the_plain_glue(cuda):
-    """The compiled train step runs with grad: its levels count as plain
-    (one a level and frame at the eager first call and at the capture),
-    none as fused, and no glue kernel launches."""
+    """The compiled train step runs with grad, and its glue through the
+    kernels all the same (the plain glue runs on CPU tensors only): its
+    levels count as fused (one a level and frame at the eager first call
+    and at the capture) and none as plain, and every call, replays
+    included, launches each glue kernel and its backward as often as a
+    window of 3 frames at 4 levels holds them: glue_prep on every frame,
+    the rest from frame 1."""
     from m4depth_tpu_torch.train.step import compile_train_step
     from m4depth_tpu_torch.utils import tracing
 
@@ -1266,11 +1435,13 @@ def test_compiled_train_step_runs_the_plain_glue(cuda):
     step = compile_train_step(model, make_optimizer(
         model, TrainConfig(learning_rate=1e-4)))
     batch = train_batch_on(cuda, b=2, T=3, hw=64, seed=7)
-    launches = [k.launches for k in GLUE_KERNELS]
+    kernels = GLUE_KERNELS + GLUE_BACKWARD_KERNELS
     for i in range(3):
         before = tracing.counters()
+        launches = [k.launches for k in kernels]
         step(batch)
         torch.cuda.synchronize()
         assert _glue_calls(before, tracing.counters()) == (
-            (0, 3 * 4) if i < 2 else (0, 0)), i
-    assert [k.launches for k in GLUE_KERNELS] == launches
+            (3 * 4, 0) if i < 2 else (0, 0)), i
+        assert [k.launches - n for k, n in zip(kernels, launches)] == [
+            3 * 4, 2 * 4, 2 * 4] + [2 * 4] * 3, i
