@@ -71,7 +71,8 @@ exits non-zero and prints no result line:
    ``compile_step``), whose replays count their kernels' launches;
 12. the V1 model: d6 at 128x128 on the card against the CPU (as phase 4),
    streaming ``M4DepthV1.step`` at 384x384 b=1 bf16 (as phase 6: 6 SNCV
-   forwards a frame, no DSCV) and its training step at b=3 T=4 (as phase
+   forwards a frame and 6 of each V1 glue kernel, no DSCV) and its
+   training step at b=3 T=4 (as phase
    8: 24 SNCV forwards and backwards a step, no DSCV), each with a
    profiler window as phase 7's (device busy, launches, the SNCV's share
    of the busy time, beside the card's name and power limit); then the
@@ -145,13 +146,18 @@ exits non-zero and prints no result line:
    and through the kernels, forward and backward apart; compiled float32
    d6 steps with the kernels against eager steps with the plain glue
    (``testing.assert_glue_steps_close``), without remat and with each
-   policy. The launch checks of every phase count these kernels too:
-   once a level where an M4Depth level runs its cost volumes (glue_prep
-   on every frame), with grad or without, and each backward once where
-   the cost volumes' backwards run;
+   policy. V1's three glue kernels (``ops/csrc/glue_v1.cu``) against their
+   plain versions (``ops/glue_v1.py``) at the six level shapes with b=8
+   (v1-stream8's batch), timed beside their plain versions and bounds.
+   The launch checks of every phase count these kernels too: once a
+   level where an M4Depth level runs its cost volumes (glue_prep on every
+   frame), with grad or without, and each backward once where the cost
+   volumes' backwards run; V1's once a level where a V1 level runs
+   without grad, none in V1's training steps;
 22. one JSON line listing the kernels (the four cost-volume kernels, their
-   float16 instantiations, then the glue's three kernels and their three
-   backward kernels), then the result line ``{"ok": true, "device":
+   float16 instantiations, the glue's three kernels and their three
+   backward kernels, then V1's three glue kernels), then the result
+   line ``{"ok": true, "device":
    {...}}``.
 
 Without a CUDA device it exits with code 2 before running anything.
@@ -191,6 +197,7 @@ from m4depth_tpu_torch.ops import (
     _build,
     cost,
     glue,
+    glue_v1,
     parallax_sweeping_cv,
     parallax_sweeping_cv_fused,
     spatial_cost_volume,
@@ -236,6 +243,10 @@ GLUE = ("glue_prep", "glue_assemble", "glue_finish")
 GLUE_BACKWARD = ("glue_prep_backward", "glue_assemble_backward",
                  "glue_finish_backward")
 SERVING = FORWARD + GLUE
+# V1's decoder glue (ops/csrc/glue_v1.cu): a V1 level launches each without
+# grad, where it launches the SNCV forward; with grad (training) none
+GLUE_V1 = ("glue_v1_prep", "glue_v1_assemble", "glue_v1_finish")
+V1_SERVING = ("sncv_forward",) + GLUE_V1
 
 # H100 SXM published peaks: HBM3 bandwidth, and float32 outside the tensor
 # cores (both kernels multiply and add float32 on the CUDA cores)
@@ -1024,16 +1035,23 @@ def phase_v1_card_vs_cpu(dev) -> None:
             f"{depth['cpu'].max().item():.4g})")
     for k, n in launch_counts().items():
         n -= before[k]
-        want = 3 * cfg.num_levels if k == "sncv_forward" else 0
+        want = 3 * cfg.num_levels if k in V1_SERVING else 0
         check(n == want, f"V1 {k}: {n} launches in 3 frames on the card, "
               f"expected {want}")
 
 
 def v1_launches(per_level: int) -> dict:
-    """V1 launches the SNCV forward and backward ``per_level`` times a
-    level, and no DSCV."""
+    """V1's training step launches the SNCV forward and backward
+    ``per_level`` times a level, no DSCV and no glue kernel (its glue runs
+    plain under grad)."""
     return {k: 6 * per_level if k.startswith("sncv") else 0
             for k in KERNELS}
+
+
+def v1_serving_launches(frames: int = 1) -> dict:
+    """A V1 serving path's launches in ``frames`` frames without grad: the
+    SNCV forward and each V1 glue kernel once a level."""
+    return {k: 6 * frames if k in V1_SERVING else 0 for k in KERNELS}
 
 
 def phase_remat(dev) -> dict:
@@ -1082,15 +1100,16 @@ def phase_gates() -> dict:
               f"the {model} geometry gate: AbsRel {metrics[0]}, Delta1 "
               f"{metrics[1]}")
         # d4, T=2: M4Depth's cost volumes run on frame 1 of each window, V1's
-        # on both frames; the evaluation adds one window's forwards (and,
-        # M4Depth's, its glue: glue_prep on both frames)
+        # on both frames; the evaluation adds one window's forwards (and
+        # their glue: M4Depth's glue_prep on both frames, V1's on both)
         m4d = {k: steps * n for k, n in m4depth_launches(2, 4).items()}
         for k, n in m4depth_launches(2, 4, train=False).items():
             m4d[k] += n
         for k, n in launches.items():
             if model == "m4depth-v1":
-                want = (0 if k.startswith("dscv") or k.startswith("glue")
-                        else 8 * (steps + (k in FORWARD)))
+                want = (8 if k in GLUE_V1 else 0 if k.startswith("dscv")
+                        or k.startswith("glue") else 8 * (steps
+                                                          + (k in FORWARD)))
             else:
                 want = m4d[k]
             check(n == want, f"{model} gate: {k} {n} launches, expected "
@@ -1420,7 +1439,7 @@ def phase_cli(dev, train_ms_no_loading: float) -> dict:
             r"evaluated \d+ frames in [0-9.]+ s \(([0-9.]+) ms/frame", text,
             "V1 eval time")
         for k, count in out["v1_eval_launches"].items():
-            want = 6 * n_frames if k == "sncv_forward" else 0
+            want = v1_serving_launches(n_frames)[k]
             check(count == want, f"CLI V1 eval: {k} {count} launches, "
                   f"expected {want}")
         perfs = np.loadtxt(os.path.join(v1_ckpt, "perfs-midair.txt"))
@@ -2272,8 +2291,7 @@ def phase_fp16_paths(dev) -> dict:
     phase_profile(out["serve"]["run"], PROFILED_FRAMES, "frame")
     log("   M4DepthV1 streaming at float16")
     out["v1_serve"] = phase_main_path(
-        dev, M4DepthV1, {k: 6 if k == "sncv_forward" else 0
-                         for k in KERNELS}, cv_dtype=F16, blocks=1)
+        dev, M4DepthV1, v1_serving_launches(), cv_dtype=F16, blocks=1)
     log(f"   M4Depth training step, b={TRAIN_B} T={TRAIN_T}, float16 cost "
         "volumes")
     out["train"] = phase_train_path(dev, cv_dtype=F16)
@@ -2531,6 +2549,9 @@ DEVICE_KERNELS = {"sncv_forward": ("sncv_forward_kernel",),
                   "glue_prep": ("glue_prep_kernel",),
                   "glue_assemble": ("glue_assemble_kernel",),
                   "glue_finish": ("glue_finish_kernel",),
+                  "glue_v1_prep": ("glue_v1_prep_kernel",),
+                  "glue_v1_assemble": ("glue_v1_assemble_kernel",),
+                  "glue_v1_finish": ("glue_v1_finish_kernel",),
                   "glue_prep_backward": ("glue_prep_backward_kernel",),
                   "glue_assemble_backward": (
                       "glue_assemble_backward_kernel",),
@@ -2833,8 +2854,8 @@ def phase_graphs(dev) -> dict:
     log("  serving, compiled against eager")
     out["serve"] = graphed_serving(dev, M4Depth, {
         k: 6 if k in SERVING else 0 for k in KERNELS}, card)
-    out["v1_serve"] = graphed_serving(dev, M4DepthV1, {
-        k: 6 if k == "sncv_forward" else 0 for k in KERNELS}, card)
+    out["v1_serve"] = graphed_serving(dev, M4DepthV1, v1_serving_launches(),
+                                      card)
     torch.cuda.empty_cache()
 
     log("  training, compiled against eager")
@@ -3078,6 +3099,89 @@ def check_glue_case(name: str, case: dict, cv, dev, what: str) -> tuple:
     return f32_err, ulps
 
 
+V1_GLUE_B = 8           # V1's glue timed at v1-stream8's batch
+
+
+def glue_v1_cases(spec, n_levels: int, dev, seed: int) -> dict:
+    """Each V1 glue kernel's fused and plain calls at one V1-d6 level shape
+    (``level_specs``' batch, bf16 features), as ``DecoderLevelV1`` makes
+    them without grad: the memory, the deeper depth at half the size (none
+    at the deepest level), a serving step's reset flags (none set),
+    bench's motion, the full-resolution camera; with each kernel the
+    unique bytes it reads and writes and a rough count of its float32
+    operations (the bytes bound all three)."""
+    level, h, w, C, _, cam_l = spec
+    b = cam_l.f.shape[0]
+    g = torch.Generator().manual_seed(seed)
+
+    def u(lo, hi, *shape):
+        return torch.rand(*shape, generator=g) * (hi - lo) + lo
+
+    hd, wd = -(-h // 2), -(-w // 2)
+    f = torch.full((b, 2), FOCAL)
+    x = dict(curr_f=torch.randn(b, h, w, C, generator=g),
+             f_maps=torch.randn(b, h, w, C, generator=g),
+             depth=u(2, 40, b, h, w, 1), rot=torch.tensor([ROT] * b),
+             trans=torch.tensor([TRANS] * b), f=f, c=f.clone(),
+             cv=torch.randn(b, h, w, (2 * V1_SEARCH + 1) ** 2, generator=g),
+             out=torch.randn(b, h, w, 1, generator=g) * 4)
+    if level < n_levels:
+        x["deeper"] = u(2, 40, b, hd, wd, 1)
+    x = {k: v.to(dev) for k, v in x.items()}
+    for k in ("curr_f", "f_maps", "out"):
+        x[k] = x[k].to(torch.bfloat16)
+    deeper = x.get("deeper")
+    go = torch.zeros(b, dtype=torch.bool, device=dev)
+    prep_args = (x["curr_f"], (x["f_maps"], x["depth"]), deeper, go,
+                 x["rot"], x["trans"], Camera(x["f"], x["c"]), 2.0 ** level)
+    f0_w, log_d0w, log_dprev = glue_v1.glue_v1_prep(*prep_args)
+    asm_args = (x["curr_f"], x["cv"], log_d0w, log_dprev, x["rot"],
+                x["trans"], Camera(x["f"], x["c"]), 2.0 ** level)
+    f_input = glue_v1.glue_v1_assemble(*asm_args)
+
+    def nbytes(*ts):
+        return sum(t.numel() * t.element_size() for t in ts if t is not None)
+
+    n_pix = b * h * w
+    return dict(
+        glue_v1_prep=dict(
+            fused=lambda: glue_v1.glue_v1_prep_fused(*prep_args),
+            plain=lambda: glue_v1.glue_v1_prep(*prep_args),
+            nbytes=nbytes(x["f_maps"], x["depth"], deeper, f0_w, log_d0w,
+                          log_dprev),
+            flops=120 * n_pix + 12 * n_pix * C),
+        glue_v1_assemble=dict(
+            fused=lambda: glue_v1.glue_v1_assemble_fused(*asm_args),
+            plain=lambda: glue_v1.glue_v1_assemble(*asm_args),
+            nbytes=nbytes(x["curr_f"], x["cv"], log_d0w, log_dprev, f_input),
+            flops=2 * f_input.numel()),
+        glue_v1_finish=dict(
+            fused=lambda: glue_v1.glue_v1_finish_fused(x["out"], LEAKY),
+            plain=lambda: glue_v1.glue_v1_finish(x["out"], LEAKY),
+            nbytes=nbytes(x["out"]) + 4 * n_pix,
+            flops=10 * n_pix))
+
+
+def check_glue_v1_case(case: dict, what: str) -> tuple:
+    """One V1 glue kernel's results against its plain version's on the
+    same inputs: float32 (the depth) to SNCV_TOL, bfloat16 (the warped
+    features, the log depths, the refiner's input) within one ulp; the
+    largest float32 error and the largest bfloat16 one in ulps."""
+    got, want = case["fused"](), case["plain"]()
+    if isinstance(want, torch.Tensor):
+        got, want = (got,), (want,)
+    f32_err, ulps = 0.0, 0.0
+    for i, (a, r) in enumerate(zip(got, want)):
+        check(a.dtype == r.dtype and a.shape == r.shape,
+              f"{what}[{i}]: {a.dtype} {tuple(a.shape)}")
+        if r.dtype == torch.float32:
+            torch.testing.assert_close(a, r, **SNCV_TOL, msg=f"{what}[{i}]")
+            f32_err = max(f32_err, max_abs_err(a, r))
+        else:
+            ulps = max(ulps, assert_within_ulps(a, r, f"{what}[{i}]"))
+    return f32_err, ulps
+
+
 def glue_step_leaves(cfg: ModelConfig, dev, b: int, seed: int) -> dict:
     """The tensors one training step's glue reads at d6's level shapes
     (SIZE x SIZE, batch b, bf16 features), by (frame, level): each frame's
@@ -3213,20 +3317,31 @@ def phase_glue(cfg: ModelConfig, dev) -> dict:
     bf16 convs and cost volumes), each against its plain version on the
     same inputs (``check_glue_case``), then its device time a call beside
     the plain version's and its bound; totals a serving frame (each
-    kernel runs once a level)."""
+    kernel runs once a level). Then V1's glue kernels the same way at b=8
+    (``check_glue_v1_case``), totals a V1 serving step of eight
+    cameras."""
     totals = {k: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, t_bytes=0.0,
                       t_ops=0.0, max_abs_err=0.0, max_ulps=0.0)
-              for k in GLUE}
+              for k in GLUE + GLUE_V1}
     levels = []
-    for spec in level_specs(cfg, 1):
+    runs = [(spec, GLUE, False) for spec in level_specs(cfg, 1)] + [
+        (spec, GLUE_V1, True)
+        for spec in level_specs(cfg, V1_GLUE_B, v1=True)]
+    for spec, names, v1 in runs:
         level, h, w, C, cuts = spec[:5]
-        cases = glue_cases(spec, cfg.num_levels, dev, 21 + level,
-                           cfg.torch_cv_dtype)
-        row = dict(level=level, h=h, w=w, C=C, cuts=cuts)
-        for name in GLUE:
+        if v1:
+            cases = glue_v1_cases(spec, cfg.num_levels, dev, 41 + level)
+        else:
+            cases = glue_cases(spec, cfg.num_levels, dev, 21 + level,
+                               cfg.torch_cv_dtype)
+        b = spec[5].f.shape[0]
+        row = dict(level=level, b=b, h=h, w=w, C=C, cuts=cuts)
+        for name in names:
             d = cases[name]
-            err, ulps = check_glue_case(name, d, cfg.torch_cv_dtype, dev,
-                                        f"level {level} {h}x{w} {name}")
+            what = f"level {level} {h}x{w} b={b} {name}"
+            err, ulps = (check_glue_v1_case(d, what) if v1 else
+                         check_glue_case(name, d, cfg.torch_cv_dtype, dev,
+                                         what))
             ms = device_ms(d["fused"], 100)
             # a plain call queues tens of small kernels: few calls keep them
             # inside the launch queue while the spin runs
@@ -3244,7 +3359,7 @@ def phase_glue(cfg: ModelConfig, dev) -> dict:
                              bound_by=b_by, bytes=d["nbytes"],
                              flops=d["flops"], max_abs_err=err,
                              max_ulps=ulps)
-            log(f"  level {level} {h}x{w} C={C} cuts={cuts} {name}: kernel "
+            log(f"  {what} C={C} cuts={cuts}: kernel "
                 f"{ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} us, bound "
                 f"{b_ms * 1e3:.3f} us ({b_by}; {d['nbytes']} B), "
                 f"{100 * b_ms / ms:.1f}% of bound; max |float32 error| "
@@ -3252,7 +3367,8 @@ def phase_glue(cfg: ModelConfig, dev) -> dict:
         levels.append(row)
     log(json.dumps({"glue_levels": levels}))
     for name, t in totals.items():
-        log(f"  {name}: {t['ms'] * 1e3:.1f} us/frame (bound "
+        log(f"  {name}: {t['ms'] * 1e3:.1f} us/"
+            f"{'V1 step (b=8)' if name in GLUE_V1 else 'frame'} (bound "
             f"{t['bound_ms'] * 1e3:.2f} us, "
             f"{100 * t['bound_ms'] / t['ms']:.1f}% of bound; plain "
             f"{t['plain_ms'] * 1e3:.1f} us)")
@@ -3570,8 +3686,7 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_v1_card_vs_cpu(dev)
     log("   V1 serving path, streaming M4DepthV1.step d6 384x384 b=1 bf16")
-    v1_serve = phase_main_path(dev, M4DepthV1, {
-        k: 6 if k == "sncv_forward" else 0 for k in KERNELS})
+    v1_serve = phase_main_path(dev, M4DepthV1, v1_serving_launches())
     log("   profile of V1's serving path")
     v1_serve_prof = phase_profile(v1_serve["run"], PROFILED_FRAMES, "frame")
     log(f"   V1 training path, d6 384x384 b={TRAIN_B} T={TRAIN_T} bf16/bf16")
@@ -3631,7 +3746,8 @@ def main() -> int:
         f"float32 check; T={REMAT_T} with remat; the CLI's eval mode")
     graphs = timed(20, phase_graphs, dev)
     log("== phase 21: the decoder glue's kernels against their plain "
-        "versions (d6 384x384 level shapes, b=1, bf16), timed; their "
+        "versions (d6 384x384 level shapes, b=1, bf16; V1's at b=8), "
+        "timed; their "
         f"backward kernels (b={TRAIN_B}, float32 and bf16), timed; one "
         "training step's glue replayed, plain and fused; compiled float32 "
         "steps with the glue kernels against the plain glue, each remat "
@@ -3790,6 +3906,36 @@ def main() -> int:
               f"{key}: {kernels[-1]['serving_launches_per_frame']} a "
               f"serving frame, {kernels[-1]['launches_per_step']} a "
               f"training step, expected {per_step[key]}")
+    # V1's glue kernels: launches a V1 serving frame (phase 12, b=1), none
+    # a V1 training step (its glue runs plain under grad); times a V1
+    # serving step of eight cameras (phase 21, b=8); the JAX package's XLA
+    # fuses this glue
+    for key in GLUE_V1:
+        t = glue_totals[key]
+        kernels.append(dict(
+            name=key, route="cuda",
+            source="m4depth_tpu_torch/ops/csrc/glue_v1.cu", replaces=None,
+            plain=f"m4depth_tpu_torch/ops/glue_v1.py::{key}",
+            v1_serving_launches_per_frame=(v1_serve["launches"][key]
+                                           // v1_serve["n_frames"]),
+            v1_launches_per_step=(v1_train["launches"][key]
+                                  // v1_train["n_steps"]),
+            cli_v1_eval_launches=cli["v1_eval_launches"][key],
+            graph_v1_serving_launches_per_frame=(
+                graphs["v1_serve"]["launches"][key] // GRAPH_FRAMES),
+            graph_v1_launches_per_step=graphs["v1_train"]["compiled"][
+                "launches"][key] // 3,
+            gate_launches={m: g["launches"][key] for m, g in gates.items()},
+            max_abs_err=t["max_abs_err"], max_ulps=t["max_ulps"],
+            v1_step_ms=t["ms"], v1_step_plain_ms=t["plain_ms"],
+            v1_step_bound_ms=t["bound_ms"],
+            bound_by="bytes" if t["t_bytes"] >= t["t_ops"] else "operations",
+            library_ms=None, passed=True))
+        check(kernels[-1]["v1_serving_launches_per_frame"] == 6
+              and kernels[-1]["v1_launches_per_step"] == 0,
+              f"{key}: {kernels[-1]['v1_serving_launches_per_frame']} a V1 "
+              f"serving frame, {kernels[-1]['v1_launches_per_step']} a V1 "
+              "training step, expected 6 and 0")
     log(json.dumps({"glue_step_replay": {
         k: {p: {q: v for q, v in r.items() if q != "glue"}
             for p, r in d.items()} for k, d in glue_train.items()},

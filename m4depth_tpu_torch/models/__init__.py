@@ -17,10 +17,10 @@ from m4depth_tpu_torch.models.m4depth_v1 import (
     DecoderLevelV1,
     EncoderV1,
     M4DepthV1,
-    inverse_leaky_relu,
     m4depth_v1_loss,
 )
 from m4depth_tpu_torch.ops.glue import prep_features
+from m4depth_tpu_torch.ops.glue_v1 import inverse_leaky_relu
 
 __all__ = [
     "DecoderLevel", "DecoderLevelV1", "DispRefiner", "DomainNorm", "Encoder",

@@ -34,26 +34,25 @@ from m4depth_tpu_torch import resolve_device
 from m4depth_tpu_torch.config import ModelConfig
 from m4depth_tpu_torch.geometry import (
     Camera,
-    pixel_grid,
-    recompute_depth,
-    reprojection_flow,
     resize_bilinear_v1,
     resize_nearest,
-    scale_camera,
 )
 from m4depth_tpu_torch.models.decoder import LevelState
 from m4depth_tpu_torch.models.encoder import Conv3x3, leaky_relu
 from m4depth_tpu_torch.models.m4depth import Device, ModelState
-from m4depth_tpu_torch.ops import dense_image_warp, spatial_cost_volume_fused
+from m4depth_tpu_torch.ops import spatial_cost_volume_fused
+from m4depth_tpu_torch.ops.glue_v1 import (
+    glue_v1_assemble,
+    glue_v1_assemble_fused,
+    glue_v1_finish,
+    glue_v1_finish_fused,
+    glue_v1_prep,
+    glue_v1_prep_fused,
+)
 from m4depth_tpu_torch.utils import tracing
 
 V1_REFINER_CHANNELS = (128, 128, 96, 64, 32, 16, 1)
 V1Pyramid = List[torch.Tensor]  # depth [b, h_l, w_l, 1], finest level first
-
-
-def inverse_leaky_relu(x: torch.Tensor, slope: float = 0.1) -> torch.Tensor:
-    """Invert a leaky-relu activation."""
-    return torch.where(x > 0, x, x / slope)
 
 
 class EncoderV1(nn.Module):
@@ -79,10 +78,6 @@ class EncoderV1(nn.Module):
         return outputs
 
 
-def _log_safe(x: torch.Tensor) -> torch.Tensor:
-    return torch.log(torch.clamp(x, min=1e-12))
-
-
 class DecoderLevelV1(nn.Module):
     """Depth-recurrent decoder level (1-indexed ``level``; 1 = finest) for
     ``channels`` features and rotations of ``rot_dim`` values (3: small
@@ -104,8 +99,7 @@ class DecoderLevelV1(nn.Module):
     def forward(
         self,
         curr_f: torch.Tensor,
-        prev_f: torch.Tensor,
-        prev_t_depth: Optional[torch.Tensor],
+        state: Optional[LevelState],
         deeper_depth: Optional[torch.Tensor],
         rot: torch.Tensor,
         trans: torch.Tensor,
@@ -113,58 +107,38 @@ class DecoderLevelV1(nn.Module):
         new_traj: Optional[torch.Tensor],
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Returns (depth, depth): the estimate and the next temporal
-        memory."""
+        memory. ``state`` is the last frame's memory of this level, or None
+        (no temporal memory); ``camera`` is at full resolution.
+
+        The glue around the SNCV and the refiner (``ops/glue_v1.py``):
+        without grad the fused wrappers, which launch the kernels of
+        ``ops/csrc/glue_v1.cu`` on CUDA tensors, with grad the plain PyTorch
+        versions, which autograd differentiates (the kernels have no
+        backward). The counters ``decoder_v1.glue_fused`` (kernels) and
+        ``decoder_v1.glue_plain`` count the calls of each."""
         cfg = self.cfg
-        b, h, w, _ = curr_f.shape
-        kw = dict(dtype=torch.float32, device=curr_f.device)
-        if prev_t_depth is None:
-            d_0 = torch.ones((b, h, w, 1), **kw)
+        fused = not torch.is_grad_enabled()
+        if fused:
+            prep, assemble, finish = (glue_v1_prep_fused,
+                                      glue_v1_assemble_fused,
+                                      glue_v1_finish_fused)
         else:
-            # The legacy recompute_depth reads the transposed small-angle
-            # row [ry, -rx, 1]; negating rot reproduces it exactly for the
-            # I + skew form, as the JAX package does. For a quaternion
-            # R(-q) == R(q), so quaternion runs read the untransposed row:
-            # a fault of the JAX package that this port matches rather than
-            # fixes on its own.
-            d_0 = recompute_depth(prev_t_depth, -rot, trans, camera)
-            if new_traj is not None:
-                d_0 = torch.where(new_traj.reshape(b, 1, 1, 1),
-                                  torch.ones_like(d_0), d_0)
-        if deeper_depth is None:
-            d_prev_l = torch.full((b, h, w, 1), 100.0, **kw)
-        else:
-            d_prev_l = resize_bilinear_v1(deeper_depth, (h, w))
-
-        # warp (previous depth | previous features) into the current frame
-        # by the deeper level's estimate, its gradient cut
-        fmap = torch.cat([d_0.to(curr_f.dtype), prev_f], dim=-1)
-        flow = reprojection_flow(d_prev_l.detach(), rot, trans, camera)
-        warped = dense_image_warp(fmap, flow)
-        d0_w = warped[..., :1].float()
-        # the SNCV kernel takes contiguous features
-        f0_w = warped[..., 1:].contiguous()
-
+            prep, assemble, finish = (glue_v1_prep, glue_v1_assemble,
+                                      glue_v1_finish)
+        tracing.tally("decoder_v1.glue_fused" if fused and curr_f.is_cuda
+                      else "decoder_v1.glue_plain")
+        scale = 2.0 ** self.level
+        f0_w, log_d0w, log_dprev = prep(curr_f, state, deeper_depth,
+                                        new_traj, rot, trans, camera, scale)
         cv = spatial_cost_volume_fused(curr_f, f0_w, cfg.search_range, 1,
                                        cfg.torch_cv_dtype, cfg.leaky_slope)
-
-        rc = rot.shape[-1]
-        dt = curr_f.dtype
-        coords, _ = pixel_grid(h, w, camera)
-        x = torch.cat([
-            curr_f,
-            cv.to(dt),
-            _log_safe(d0_w / 10.0).to(dt),
-            _log_safe(d_prev_l / 10.0).to(dt),
-            rot.reshape(b, 1, 1, rc).expand(b, h, w, rc).to(dt),
-            trans.reshape(b, 1, 1, 3).expand(b, h, w, 3).to(dt),
-            coords[..., :2].expand(b, h, w, 2).to(dt),
-        ], dim=-1)
+        x = assemble(curr_f, cv, log_d0w, log_dprev, rot, trans, camera,
+                     scale)
         tracing.mark(f"refiner{self.level}", x.device)
         for conv in self.convs:
             x = leaky_relu(conv(x), cfg.leaky_slope)
         tracing.mark(f"glue{self.level}", x.device)
-        x = inverse_leaky_relu(x.float(), cfg.leaky_slope)
-        depth = torch.exp(torch.clamp(x, -7.0, 7.0)) * 10.0
+        depth = finish(x, cfg.leaky_slope)
         return depth, depth
 
 
@@ -216,17 +190,9 @@ class M4DepthV1(nn.Module):
         ests: List[Optional[torch.Tensor]] = [None] * num_levels
         deeper = None
         for idx in reversed(range(num_levels)):
-            cam_l = scale_camera(camera, 2.0 ** (idx + 1))
-            if self.single_frame or first:
-                prev_f, prev_d = f_pyr[idx], None
-            else:
-                prev_f, prev_d = state[idx].f_maps, state[idx].depth
-                if new_traj is not None:
-                    prev_f = torch.where(new_traj.reshape(-1, 1, 1, 1),
-                                         f_pyr[idx], prev_f)
-            deeper, mem = self.levels[idx](
-                f_pyr[idx], prev_f, prev_d, deeper, rot, trans, cam_l,
-                new_traj)
+            memory = None if self.single_frame or first else state[idx]
+            deeper, mem = self.levels[idx](f_pyr[idx], memory, deeper, rot,
+                                           trans, camera, new_traj)
             ests[idx] = deeper
             new_states[idx] = LevelState(f_maps=f_pyr[idx], depth=mem)
         return tuple(new_states), ests

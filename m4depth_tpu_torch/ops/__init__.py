@@ -17,6 +17,11 @@ from m4depth_tpu_torch.ops.glue import (
     GLUE_PREP_BACKWARD_KERNEL,
     GLUE_PREP_KERNEL,
 )
+from m4depth_tpu_torch.ops.glue_v1 import (
+    GLUE_V1_ASSEMBLE_KERNEL,
+    GLUE_V1_FINISH_KERNEL,
+    GLUE_V1_PREP_KERNEL,
+)
 from m4depth_tpu_torch.ops.sncv import (
     SNCV_BACKWARD_KERNEL,
     SNCV_KERNEL,
@@ -27,18 +32,20 @@ from m4depth_tpu_torch.ops.sncv import (
 from m4depth_tpu_torch.ops.warp import dense_image_warp
 
 # the hand-written kernels by their C entry points: the cost volumes', then
-# the decoder glue's and their backwards
+# the decoder glue's and their backwards, then V1's decoder glue's
 KERNELS = {k.symbol: k for k in (
     SNCV_KERNEL, DSCV_KERNEL, SNCV_BACKWARD_KERNEL, DSCV_BACKWARD_KERNEL,
     GLUE_PREP_KERNEL, GLUE_ASSEMBLE_KERNEL, GLUE_FINISH_KERNEL,
     GLUE_PREP_BACKWARD_KERNEL, GLUE_ASSEMBLE_BACKWARD_KERNEL,
-    GLUE_FINISH_BACKWARD_KERNEL)}
+    GLUE_FINISH_BACKWARD_KERNEL, GLUE_V1_PREP_KERNEL,
+    GLUE_V1_ASSEMBLE_KERNEL, GLUE_V1_FINISH_KERNEL)}
 
 __all__ = [
     "DSCVFunction", "DSCV_BACKWARD_KERNEL", "DSCV_KERNEL",
     "GLUE_ASSEMBLE_BACKWARD_KERNEL", "GLUE_ASSEMBLE_KERNEL",
     "GLUE_FINISH_BACKWARD_KERNEL", "GLUE_FINISH_KERNEL",
     "GLUE_PREP_BACKWARD_KERNEL", "GLUE_PREP_KERNEL",
+    "GLUE_V1_ASSEMBLE_KERNEL", "GLUE_V1_FINISH_KERNEL", "GLUE_V1_PREP_KERNEL",
     "KERNELS", "SNCVFunction", "SNCV_BACKWARD_KERNEL", "SNCV_KERNEL",
     "dense_image_warp", "parallax_sweeping_cv", "parallax_sweeping_cv_fused",
     "spatial_cost_volume", "spatial_cost_volume_fused",

@@ -1,9 +1,11 @@
-// Device helpers shared by the kernels (sncv.cu, dscv.cu, glue.cu): input
-// types (float32, bfloat16, float16) widened to float32, 16-byte vector
-// loads and stores, the rotation matrix and the epipolar terms of a pixel
-// (dscv.cu, glue.cu), the coalesced store of a block's staged outputs, the
-// shared-memory limit of a kernel on the current device, and the dtype code
-// of the C entry points.
+// Device helpers shared by the kernels (sncv.cu, dscv.cu, glue.cu,
+// glue_backward.cu, glue_v1.cu): input types (float32, bfloat16, float16)
+// widened to float32 and float32 rounded to them, 16-byte vector loads and
+// stores, the rotation matrix and the epipolar terms of a pixel (dscv.cu,
+// glue.cu, glue_v1.cu), the glues' clamp, log and TFv1 bilinear resize as
+// the plain tensor ops round them, the coalesced store of a block's staged
+// outputs, the shared-memory limit of a kernel on the current device, and
+// the dtype code of the C entry points.
 
 #pragma once
 
@@ -280,6 +282,90 @@ __device__ __forceinline__ Epipolar epipolar(
   e.rho = sqrtf(e.dx * e.dx + e.dy * e.dy);
   e.den = fmaxf(e.rho, 1e-12f);
   return e;
+}
+
+template <typename T>
+__device__ __forceinline__ T from_float(float v);
+template <>
+__device__ __forceinline__ float from_float<float>(float v) {
+  return v;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+template <>
+__device__ __forceinline__ __half from_float<__half>(float v) {
+  return __float2half_rn(v);
+}
+
+// v rounded to T (to nearest even, as Tensor.to) and widened back.
+template <typename T>
+__device__ __forceinline__ float round_to(float v) {
+  return to_float(from_float<T>(v));
+}
+
+// torch.clamp(v, lo, hi) in float32: a NaN stays NaN.
+__device__ __forceinline__ float clamp_nan(float v, float lo, float hi) {
+  return v < lo ? lo : (v > hi ? hi : v);
+}
+
+// log(clamp(x * mul, min=1e-12)): the refiner's log-parallax channels.
+__device__ __forceinline__ float log_safe(float x, float mul) {
+  const float v = __fmul_rn(x, mul);
+  return logf(v < 1e-12f ? 1e-12f : v);
+}
+
+// One axis of resize_bilinear_v1 (geometry/resize.py::_lerp_axis on the
+// TFv1 grid: src = dst * scale, no half-pixel offset): the taps and the
+// fraction of output index i. `same` where the axis keeps its size: the
+// plain version returns it untouched.
+struct Axis {
+  int lo, hi;
+  float frac;
+  bool same;
+};
+
+__device__ __forceinline__ Axis lerp_axis(int i, int src, int dst,
+                                          float scale) {
+  Axis a;
+  a.same = src == dst;
+  if (a.same) {
+    a.lo = a.hi = i;
+    a.frac = 0.f;
+    return a;
+  }
+  const float pos =
+      fminf(fmaxf(__fmul_rn((float)i, scale), 0.f), (float)(src - 1));
+  a.lo = min((int)floorf(pos), src - 1);
+  a.hi = min(a.lo + 1, src - 1);
+  a.frac = __fsub_rn(pos, (float)a.lo);
+  return a;
+}
+
+// a + (b - a) * t, each operation rounded as a tensor op rounds it.
+__device__ __forceinline__ float lerp(float a, float b, float t) {
+  return __fadd_rn(a, __fmul_rn(__fsub_rn(b, a), t));
+}
+
+// Channel ch of column xx of the map m ([hd, wd, n], one image) resampled
+// along the height.
+__device__ __forceinline__ float column(const float* __restrict__ m, int wd,
+                                        int n, int ch, const Axis& ay,
+                                        int xx) {
+  const float a = m[((long long)ay.lo * wd + xx) * n + ch];
+  if (ay.same) return a;
+  return lerp(a, m[((long long)ay.hi * wd + xx) * n + ch], ay.frac);
+}
+
+// Channel ch of the map m at this level's pixel: the height first, then the
+// width, as resize_bilinear_v1 does.
+__device__ __forceinline__ float upsample(const float* __restrict__ m,
+                                          int wd, int n, int ch,
+                                          const Axis& ay, const Axis& ax) {
+  const float v0 = column(m, wd, n, ch, ay, ax.lo);
+  if (ax.same) return v0;
+  return lerp(v0, column(m, wd, n, ch, ay, ax.hi), ax.frac);
 }
 
 // The dtype code of the C entry points' inputs.

@@ -61,43 +61,18 @@ constexpr int kThreads = 256;
 // refuses smaller ones)
 constexpr int kTaps = 8;
 
-template <typename T>
-__device__ __forceinline__ T from_float(float v);
-template <>
-__device__ __forceinline__ float from_float<float>(float v) {
-  return v;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-template <>
-__device__ __forceinline__ __half from_float<__half>(float v) {
-  return __float2half_rn(v);
-}
-
-// v rounded to T (to nearest even, as Tensor.to) and widened back.
-template <typename T>
-__device__ __forceinline__ float round_to(float v) {
-  return to_float(from_float<T>(v));
-}
-
-// torch.clamp(v, lo, hi) in float32: a NaN stays NaN.
-__device__ __forceinline__ float clamp_nan(float v, float lo, float hi) {
-  return v < lo ? lo : (v > hi ? hi : v);
-}
-
-// The taps of glue.cu's `lerp_axis` for output index i: source lo at
-// weight 1 - frac, source hi at weight frac (the same index when the
-// border clamps), or i itself where the axis keeps its size.
-struct Axis {
+// The taps of common.cuh's `lerp_axis` for output index i, without its
+// `same` flag: source lo at weight 1 - frac, source hi at weight frac (the
+// same index when the border clamps), or i itself where the axis keeps its
+// size.
+struct Taps {
   int lo, hi;
   float frac;
 };
 
-__device__ __forceinline__ Axis lerp_axis(int i, int src, int dst,
+__device__ __forceinline__ Taps lerp_taps(int i, int src, int dst,
                                           float scale) {
-  Axis a;
+  Taps a;
   if (src == dst) {
     a.lo = a.hi = i;
     a.frac = 0.f;
@@ -126,7 +101,7 @@ __device__ __forceinline__ int taps_of(int j, int src, int dst, float scale,
   const int i1 = min(dst - 1, (int)ceilf((float)(j + 1) / scale) + 1);
   int n = 0;
   for (int i = i0; i <= i1 && n < kTaps; ++i) {
-    const Axis a = lerp_axis(i, src, dst, scale);
+    const Taps a = lerp_taps(i, src, dst, scale);
     const float w = (a.lo == j ? 1.f - a.frac : 0.f) +
                     (a.hi == j ? a.frac : 0.f);
     if (a.lo == j || a.hi == j) {

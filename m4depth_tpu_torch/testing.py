@@ -18,7 +18,7 @@ import torch
 from m4depth_tpu_torch.config import ModelConfig, TrainConfig
 from m4depth_tpu_torch.geometry import Camera, parallax_sweep_flows
 from m4depth_tpu_torch.models import M4Depth
-from m4depth_tpu_torch.ops import glue, spatial_cost_volume
+from m4depth_tpu_torch.ops import glue, glue_v1, spatial_cost_volume
 from m4depth_tpu_torch.train import (
     TrainState,
     compile_train_step,
@@ -74,6 +74,9 @@ EVAL_METRIC_TOL = dict(rtol=1e-5, atol=1e-6)
 # one ulp (GLUE_ULPS, ``assert_within_ulps``) of the coarsest dtype it was
 # rounded to: features of bfloat16 convs rounded on to float16 cost
 # volumes keep bfloat16's spacing (one bfloat16 ulp is 8 of float16).
+# V1's glue kernels (ops/csrc/glue_v1.cu) against theirs (ops/glue_v1.py)
+# by the same rule: they round as the plain chain rounds on the card, its
+# rotation matrix and its three-term sums (in ATen's CUDA order) included.
 GLUE_ULPS = 1
 
 # The glue's backward kernels (ops/csrc/glue_backward.cu) against their
@@ -385,19 +388,26 @@ def assert_step_close(got: dict, ref: dict, lr: float, what: str) -> dict:
 
 @contextlib.contextmanager
 def plain_glue():
-    """The decoder runs the plain glue in place of the fused wrappers, on
-    any device and in any grad mode."""
-    from m4depth_tpu_torch.models import decoder
+    """Both families' decoders run the plain glue in place of the fused
+    wrappers, on any device and in any grad mode."""
+    from m4depth_tpu_torch.models import decoder, m4depth_v1
 
-    names = ("glue_prep_fused", "glue_assemble_fused", "glue_finish_fused")
-    saved = [getattr(decoder, n) for n in names]
-    for n in names:
-        setattr(decoder, n, getattr(glue, n[:-len("_fused")]))
+    swaps = [(module, n, getattr(source, n[:-len("_fused")]))
+             for module, source, names in (
+                 (decoder, glue, ("glue_prep_fused", "glue_assemble_fused",
+                                  "glue_finish_fused")),
+                 (m4depth_v1, glue_v1, ("glue_v1_prep_fused",
+                                        "glue_v1_assemble_fused",
+                                        "glue_v1_finish_fused")))
+             for n in names]
+    saved = [getattr(module, n) for module, n, _ in swaps]
+    for module, n, plain in swaps:
+        setattr(module, n, plain)
     try:
         yield
     finally:
-        for n, fn in zip(names, saved):
-            setattr(decoder, n, fn)
+        for (module, n, _), fn in zip(swaps, saved):
+            setattr(module, n, fn)
 
 
 def _step_result(step, model, batch) -> dict:

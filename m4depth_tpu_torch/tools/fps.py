@@ -1,18 +1,18 @@
 """Streaming frames per second of the compiled ``M4Depth.step``, with an
 optional device-time breakdown by stage. Counterpart of ``tools/fps.py``.
 
-The d``--levels`` model (bfloat16 convs, ``--cv_dtype`` cost volumes,
-weights from seed 0) streams one frame after another at ``--size`` (or
-``--height`` x ``--width``), batch ``--batch``, under bench.py's motion
-(``--trans`` sets the translation, and with it the epipolar field),
-through ``parallel.serving.compile_step`` (one CUDA graph replayed a frame
-on the card, as the JAX tool times its jitted step). After 10 frames of
-warm-up, the best of 3 runs of ``--n`` frames, each ending in a
-synchronise, gives ms/frame and frames/s; the host's time in the
-compiled call a frame comes from ``utils.tracing``'s ``compiled.replays``
-counter over those runs (prepare, launch, finish), and the eager first
-call's and the capture's from ``compiled.warmups`` and
-``compiled.captures``.
+The d``--levels`` model (``--model``: M4Depth or M4Depth-V1; bfloat16
+convs, ``--cv_dtype`` cost volumes, weights from seed 0) streams one
+frame after another at ``--size`` (or ``--height`` x ``--width``), batch
+``--batch``, under bench.py's motion (``--trans`` sets the translation,
+and with it the epipolar field), through ``parallel.serving.compile_step``
+(one CUDA graph replayed a frame on the card, as the JAX tool times its
+jitted step). After 10 frames of warm-up, the best of 3 runs of ``--n``
+frames, each ending in a synchronise, gives ms/frame and frames/s; the
+host's time in the compiled call a frame comes from ``utils.tracing``'s
+``compiled.replays`` counter over those runs (prepare, launch, finish),
+and the eager first call's and the capture's from ``compiled.warmups``
+and ``compiled.captures``.
 
 ``--profile`` then records ``PROFILED_FRAMES`` replayed frames with
 ``utils.profiling.device_trace`` and splits their device time by the
@@ -42,7 +42,7 @@ import torch
 from m4depth_tpu_torch import resolve_device
 from m4depth_tpu_torch.config import DTYPES, ModelConfig
 from m4depth_tpu_torch.geometry import Camera
-from m4depth_tpu_torch.models import M4Depth, init_state
+from m4depth_tpu_torch.models import M4Depth, M4DepthV1, init_state
 from m4depth_tpu_torch.parallel.serving import compile_step
 from m4depth_tpu_torch.utils import tracing
 from m4depth_tpu_torch.utils.profiling import device_breakdown, device_trace
@@ -51,6 +51,9 @@ WARMUP_FRAMES = 10
 REPEATS = 3
 PROFILED_FRAMES = 10
 TOP_OPS = 16
+FAMILIES = {"m4depth": M4Depth, "m4depth-v1": M4DepthV1}
+# each family's decoder-glue counters (utils.tracing.tally), by family
+GLUE_COUNTERS = ("decoder", "decoder_v1")
 
 
 def parse_args(argv=None):
@@ -58,6 +61,7 @@ def parse_args(argv=None):
     p.add_argument("--trans", default="0.05,0.02,0.4",
                    help="camera translation (sets the epipolar field the "
                         "DSCV samples along)")
+    p.add_argument("--model", choices=sorted(FAMILIES), default="m4depth")
     p.add_argument("--size", type=int, default=384)
     p.add_argument("--height", type=int, default=0,
                    help="overrides --size for non-square frames (KITTI "
@@ -82,7 +86,7 @@ def make_stream(a):
     dev = resolve_device(a.device)
     cfg = ModelConfig(num_levels=a.levels, compute_dtype="bfloat16",
                       cv_dtype=a.cv_dtype)
-    model = M4Depth(cfg, device=dev, seed=0)
+    model = FAMILIES[a.model](cfg, device=dev, seed=0)
     b, h, w = a.batch, a.height or a.size, a.width or a.size
     rng = np.random.RandomState(0)
     rgb = torch.from_numpy(rng.rand(b, h, w, 3).astype(np.float32)).to(dev)
@@ -153,9 +157,10 @@ def print_dispatch(d: dict, unit: str) -> None:
     """The host's time in the compiled call a ``unit``, and the warm-up's
     and the capture's, and the decoder levels by their glue
     (``dispatch``)."""
-    print(f"decoder levels by their glue (counted in Python: the eager first "
-          f"call and the capture): kernels {d['glue_fused']}, plain "
-          f"{d['glue_plain']}")
+    print("decoder levels by their glue (counted in Python: the eager first "
+          "call and the capture): " + "; ".join(
+              f"{name} kernels {d[name + '.glue_fused']}, plain "
+              f"{d[name + '.glue_plain']}" for name in GLUE_COUNTERS))
     if d.get("ns") is None:
         print("host time in the compiled call: no replay timed")
         return
@@ -176,17 +181,19 @@ def dispatch(start: dict, before: dict, after: dict,
     ``compiled.warmups`` and ``compiled.captures`` call since the start,
     and with ``entry`` that counter's mean timed call (us; None where no
     such call ran); and the decoder levels that ran the glue's kernels
-    (``decoder.glue_fused``) and its plain version (``decoder.glue_plain``)
-    since the start."""
+    (``decoder.glue_fused``, V1's ``decoder_v1.glue_fused``) and its plain
+    version (``decoder.glue_plain``, ``decoder_v1.glue_plain``) since the
+    start."""
     out = {key: tracing.mean_us(after, "compiled.replays", before, key)
            for key in ("ns", "prepare_ns", "launch_ns", "finish_ns")}
     out.update(warm_up=tracing.mean_us(after, "compiled.warmups", start),
                capture=tracing.mean_us(after, "compiled.captures", start),
                entry=entry and tracing.mean_us(after, entry, before))
-    for kind in ("fused", "plain"):
-        name = f"decoder.glue_{kind}"
-        out[f"glue_{kind}"] = (after.get(name, {}).get("calls", 0)
-                               - start.get(name, {}).get("calls", 0))
+    for family in GLUE_COUNTERS:
+        for kind in ("fused", "plain"):
+            name = f"{family}.glue_{kind}"
+            out[name] = (after.get(name, {}).get("calls", 0)
+                         - start.get(name, {}).get("calls", 0))
     return out
 
 
@@ -221,7 +228,7 @@ def main(argv=None) -> int:
     r = run(a)
     h, w = a.height or a.size, a.width or a.size
     print(f"fps={r['fps']:.2f}  ms/frame={r['ms_per_frame']:.3f}  "
-          f"batch={a.batch} size={h}x{w} levels={a.levels} "
+          f"model={a.model} batch={a.batch} size={h}x{w} levels={a.levels} "
           f"cv_dtype={a.cv_dtype} device={r['device']} (best of {REPEATS} "
           f"runs of {a.n} frames)", flush=True)
     print_dispatch(r["dispatch"], "frame")

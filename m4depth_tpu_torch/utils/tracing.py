@@ -44,8 +44,12 @@ device work (the profiler also draws such a range on the device timeline).
 captured (and replayed once), so neither enters a replay's mean.
 ``decoder.glue_fused`` and ``decoder.glue_plain`` (``tally``, untimed)
 count ``DecoderLevel`` calls by the glue they ran: its kernels (on CUDA
-tensors, with grad or without) or its plain version (on CPU tensors). They count in Python, so a captured
-graph counts its levels once, at its capture, and a replay none.
+tensors, with grad or without) or its plain version (on CPU tensors);
+``decoder_v1.glue_fused`` and ``decoder_v1.glue_plain`` count
+``DecoderLevelV1`` calls the same way, whose kernels run on CUDA tensors
+without grad and whose plain version runs with grad (training) or on CPU
+tensors. They count in Python, so a captured graph counts its levels once,
+at its capture, and a replay none.
 """
 
 from __future__ import annotations

@@ -31,6 +31,9 @@ from m4depth_tpu_torch.ops import (
     GLUE_FINISH_KERNEL,
     GLUE_PREP_BACKWARD_KERNEL,
     GLUE_PREP_KERNEL,
+    GLUE_V1_ASSEMBLE_KERNEL,
+    GLUE_V1_FINISH_KERNEL,
+    GLUE_V1_PREP_KERNEL,
     SNCV_BACKWARD_KERNEL,
     SNCV_KERNEL,
     parallax_sweeping_cv,
@@ -38,7 +41,7 @@ from m4depth_tpu_torch.ops import (
     spatial_cost_volume,
     spatial_cost_volume_fused,
 )
-from m4depth_tpu_torch.ops import glue
+from m4depth_tpu_torch.ops import glue, glue_v1
 from m4depth_tpu_torch.ops.cost_volume import round_parallax
 from m4depth_tpu_torch.ops.sncv import KERNEL_DTYPES, _sncv_backward
 from m4depth_tpu_torch.testing import (
@@ -1445,3 +1448,260 @@ def test_compiled_train_step_runs_the_plain_glue(cuda):
             (3 * 4, 0) if i < 2 else (0, 0)), i
         assert [k.launches - n for k, n in zip(kernels, launches)] == [
             3 * 4, 2 * 4, 2 * 4] + [2 * 4] * 3, i
+
+
+# -- V1's decoder glue kernels (ops/csrc/glue_v1.cu) -------------------------
+
+# V1-d6's levels at 384x384 as (level, h, w, C), finest first, at b=1 and b=8
+V1_D6_LEVELS = ((1, 192, 192, 16), (2, 96, 96, 32), (3, 48, 48, 64),
+                (4, 24, 24, 96), (5, 12, 12, 128), (6, 6, 6, 192))
+GLUE_V1_SHAPES = [(b, *lv) for b in (1, 8) for lv in V1_D6_LEVELS]
+GLUE_V1_IDS = [f"b{b}-level{lv}-{h}x{w}" for b, lv, h, w, _ in GLUE_V1_SHAPES]
+GLUE_V1_KERNELS = (GLUE_V1_PREP_KERNEL, GLUE_V1_ASSEMBLE_KERNEL,
+                   GLUE_V1_FINISH_KERNEL)
+V1_LEVELS = 6
+
+
+def _glue_v1_inputs(b, level, h, w, C, rot_dim, dev, dtype, memory=True,
+                    reset=None, nan=False, seed=0):
+    """(curr_f, state (None without ``memory``), deeper (None at the
+    deepest level), new_traj ([b] with the last element set where
+    ``reset``, else None), rot, trans, full-resolution camera, scale) for a
+    V1 level, mostly lateral motion; ``nan`` puts a NaN in the deeper depth,
+    so the flow of the fine pixels that read it is NaN."""
+    rng = np.random.RandomState(seed)
+
+    def t(x):
+        return torch.from_numpy(np.asarray(x, np.float32)).to(dev)
+
+    curr_f = t(rng.randn(b, h, w, C)).to(dtype)
+    state = (t(rng.randn(b, h, w, C)).to(dtype),
+             t(rng.uniform(2, 40, (b, h, w, 1)))) if memory else None
+    deeper = None
+    if level < V1_LEVELS:
+        deeper = t(rng.uniform(2, 40, (b, -(-h // 2), -(-w // 2), 1)))
+        if nan:
+            deeper[0, 1, 2, 0] = float("nan")
+    new_traj = (torch.arange(b, device=dev) == b - 1) if reset else None
+    if rot_dim == 3:
+        rot = t(rng.randn(b, 3) * 0.01)
+    else:
+        q = np.concatenate([np.ones((b, 1)), rng.randn(b, 3) * 0.01], 1)
+        rot = t(q / np.linalg.norm(q, axis=1, keepdims=True))
+    trans = t(np.array([0.3, 0.1, 0.02]) + rng.randn(b, 3) * 0.05)
+    full = 2.0 ** level
+    f = t(np.tile([[w * full * 0.6, h * full * 0.7]], (b, 1)))
+    c = t(np.tile([[w * full / 2 + 0.3, h * full / 2 - 0.2]], (b, 1)))
+    return (curr_f, state, deeper, new_traj, rot, trans, Camera(f, c),
+            full)
+
+
+def _close_v1(got, want, what):
+    """A V1 glue output against its plain version's: NaN at the same
+    elements; elsewhere float32 to SNCV_TOL, a rounded dtype within one of
+    its ulps."""
+    assert got.dtype == want.dtype and got.shape == want.shape, what
+    nan = torch.isnan(want)
+    assert torch.equal(torch.isnan(got), nan), what
+    got, want = got[~nan], want[~nan]
+    if want.dtype == torch.float32:
+        torch.testing.assert_close(got, want, **SNCV_TOL, msg=what)
+    else:
+        assert_within_ulps(got, want, what)
+
+
+@pytest.mark.parametrize("reset", [False, True], ids=["no_reset", "reset"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("shape", GLUE_V1_SHAPES, ids=GLUE_V1_IDS)
+def test_glue_v1_kernels_match_plain(cuda, shape, dtype, reset):
+    """Each V1 glue kernel against its plain version on the same inputs at
+    V1-d6's level shapes, with the memory, quaternion rotations, the last
+    element reset or none, and a NaN flow position below the deepest
+    level: the warped features, the log depths and the refiner's input
+    within one ulp of their dtype (float32 to SNCV_TOL), the depth to
+    SNCV_TOL, the NaN where the plain version has it. Each kernel launches
+    once."""
+    b, level, h, w, C = shape
+    args = _glue_v1_inputs(b, level, h, w, C, 4, cuda, dtype, reset=reset,
+                           nan=True, seed=level)
+    before = [k.launches for k in GLUE_V1_KERNELS]
+    got, want = glue_v1.glue_v1_prep_fused(*args), glue_v1.glue_v1_prep(*args)
+    for i, key in enumerate(("f0_w", "log_d0w", "log_dprev")):
+        _close_v1(got[i], want[i], key)
+    assert got[0].is_contiguous()
+    curr_f, _, _, _, rot, trans, cam, scale = args
+    g = torch.Generator(device=cuda).manual_seed(level)
+    cv = torch.randn(b, h, w, 81, device=cuda, generator=g)
+    asm = (curr_f, cv, want[1], want[2], rot, trans, cam, scale)
+    f_input = glue_v1.glue_v1_assemble_fused(*asm)
+    assert f_input.shape == (b, h, w, C + 81 + 2 + 4 + 3 + 2)
+    _close_v1(f_input, glue_v1.glue_v1_assemble(*asm), "f_input")
+    out = (torch.randn(b, h, w, 1, device=cuda, generator=g) * 4).to(dtype)
+    out[:, ::5] = 0.0
+    _close_v1(glue_v1.glue_v1_finish_fused(out, 0.1),
+              glue_v1.glue_v1_finish(out, 0.1), "depth")
+    torch.cuda.synchronize()
+    assert [k.launches - n for k, n in zip(GLUE_V1_KERNELS,
+                                           before)] == [1, 1, 1]
+
+
+@pytest.mark.parametrize("rot_dim", [3, 4])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("shape", [(2, 1, 13, 9, 18), (3, 3, 7, 7, 64),
+                                   (2, 6, 2, 3, 8)],
+                         ids=["13x9-C18", "7x7-deeper4x4", "deepest-2x3"])
+def test_glue_v1_prep_takes_every_case(cuda, shape, dtype, rot_dim):
+    """``glue_v1_prep`` against its plain version without memory (a
+    window's first frame) and with memory reset on every element or none,
+    under small-angle and quaternion rotations, at shapes off the 16-byte
+    path (C = 18), with a 4x4 deeper level under a 7x7 one (a resize scale
+    of 4/7) and at the smallest level the warp takes (2x3)."""
+    b, level, h, w, C = shape
+    for memory, reset in ((False, None), (True, None), (True, "all")):
+        args = list(_glue_v1_inputs(b, level, h, w, C, rot_dim, cuda, dtype,
+                                    memory=memory, seed=C))
+        if reset:
+            args[3] = torch.ones(b, dtype=torch.bool, device=cuda)
+        got = glue_v1.glue_v1_prep_fused(*args)
+        want = glue_v1.glue_v1_prep(*args)
+        for i, key in enumerate(("f0_w", "log_d0w", "log_dprev")):
+            _close_v1(got[i], want[i], f"{key} memory={memory} {reset}")
+
+
+def test_glue_v1_wrappers_raise_on_inputs_that_require_grad(cuda):
+    """Under grad a CUDA input that requires grad makes each V1 wrapper
+    raise (the kernels have no backward and nothing falls back to the plain
+    version); without grad the same inputs launch."""
+    b, level, h, w, C = GLUE_V1_SHAPES[3]
+    args = _glue_v1_inputs(b, level, h, w, C, 4, cuda, torch.bfloat16)
+    curr_f, state, deeper, new_traj, rot, trans, cam, scale = args
+    needs = curr_f.clone().requires_grad_()
+    with pytest.raises(ValueError, match="no gradient"):
+        glue_v1.glue_v1_prep_fused(needs, *args[1:])
+    with pytest.raises(ValueError, match="no gradient"):
+        glue_v1.glue_v1_prep_fused(curr_f, state, deeper, new_traj,
+                                   rot.clone().requires_grad_(), trans, cam,
+                                   scale)
+    f0_w, log_d0w, log_dprev = glue_v1.glue_v1_prep_fused(*args)
+    cv = torch.randn(b, h, w, 81, device=cuda, requires_grad=True)
+    with pytest.raises(ValueError, match="no gradient"):
+        glue_v1.glue_v1_assemble_fused(curr_f, cv, log_d0w, log_dprev, rot,
+                                       trans, cam, scale)
+    out = torch.randn(b, h, w, 1, device=cuda, requires_grad=True)
+    with pytest.raises(ValueError, match="no gradient"):
+        glue_v1.glue_v1_finish_fused(out, 0.1)
+    with torch.no_grad():
+        glue_v1.glue_v1_prep_fused(needs, *args[1:])
+        glue_v1.glue_v1_assemble_fused(curr_f, cv, log_d0w, log_dprev, rot,
+                                       trans, cam, scale)
+        glue_v1.glue_v1_finish_fused(out, 0.1)
+
+
+def _glue_v1_calls(before, after):
+    return tuple(after.get(k, {}).get("calls", 0)
+                 - before.get(k, {}).get("calls", 0)
+                 for k in ("decoder_v1.glue_fused", "decoder_v1.glue_plain"))
+
+
+@pytest.mark.parametrize("dtype,hw,b", [("float32", 128, 2),
+                                        ("bfloat16", 384, 8)],
+                         ids=["f32-128-b2", "bf16-384-b8"])
+def test_compiled_v1_step_with_glue_kernels_matches_plain(cuda, dtype, hw,
+                                                          b):
+    """The compiled V1 serving step (``compile_step``: the eager first
+    call, the capture, replays) with the glue kernels against the eager
+    ``M4DepthV1.step`` with the plain glue (``plain_glue``), five frames
+    with single elements reset: float32 to MODEL_TOL, bfloat16 convs by
+    the bfloat16 depth rule. Each glue kernel launches once a level every
+    call, and the levels count as fused at the first call and the capture
+    (``decoder_v1.glue_fused`` 6 a call) and not at a replay."""
+    from m4depth_tpu_torch.models import M4DepthV1
+    from m4depth_tpu_torch.parallel import compile_step
+    from m4depth_tpu_torch.utils import tracing
+
+    cfg = ModelConfig(compute_dtype=dtype, cv_dtype=dtype)
+    model = M4DepthV1(cfg, device=cuda, seed=6)
+    step = compile_step(model)
+    states = [init_state(cfg, b, hw, hw, device=cuda) for _ in range(2)]
+    rgb, rot, trans, f = (torch.from_numpy(x).to(cuda)
+                          for x in _stream_frames(b, hw, 5, seed=18))
+    cam = Camera(f, f.clone())
+    for t in range(5):
+        reset = (torch.arange(b, device=cuda) == t % b) | (t == 0)
+        before = tracing.counters()
+        launches = [k.launches for k in GLUE_V1_KERNELS]
+        states[0], got = step(states[0], rgb[t], rot, trans, cam, reset)
+        torch.cuda.synchronize()
+        assert _glue_v1_calls(before, tracing.counters()) == (
+            (V1_LEVELS, 0) if t < 2 else (0, 0)), t
+        assert [k.launches - n for k, n in zip(
+            GLUE_V1_KERNELS, launches)] == [V1_LEVELS] * 3, t
+        with plain_glue():
+            states[1], want = model.step(states[1], rgb[t], rot, trans, cam,
+                                         reset)
+        if dtype == "float32":
+            torch.testing.assert_close(got, want, **MODEL_TOL)
+        else:
+            assert_bf16_depth_close(got, want, f"frame {t}")
+    assert step.graphs == 1
+
+
+def test_v1_frame_dispatches_no_gather_or_cat(cuda):
+    """A V1 serving frame on the card (bf16, 128x128, b=2) dispatches
+    neither the warp's ``gather``s nor the refiner input's ``cat``: the
+    glue kernels replace them. The same frame with the plain glue
+    dispatches both, so the probe sees them."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from m4depth_tpu_torch.models import M4DepthV1
+
+    class Ops(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.names = set()
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.names.add(func.overloadpacket.__name__)
+            return func(*args, **(kwargs or {}))
+
+    cfg = ModelConfig(compute_dtype="bfloat16")
+    b, hw = 2, 128
+    model = M4DepthV1(cfg, device=cuda, seed=7)
+    rgb, rot, trans, f = (torch.from_numpy(x).to(cuda)
+                          for x in _stream_frames(b, hw, 1, seed=19))
+    args = (rgb[0], rot, trans, Camera(f, f.clone()),
+            torch.tensor([True, False], device=cuda))
+    state = init_state(cfg, b, hw, hw, device=cuda)
+    with Ops() as fused:
+        model.step(state, *args)
+    with plain_glue(), Ops() as plain:
+        model.step(state, *args)
+    assert {"gather", "cat"} <= plain.names
+    assert not {"gather", "cat"} & fused.names, fused.names
+
+
+def test_compiled_v1_train_step_runs_the_plain_glue(cuda):
+    """The compiled V1 training step runs with grad, so its glue is the
+    plain version: its levels count as plain (one a level and frame at
+    the eager first call and at the capture), none as fused, and no V1
+    glue kernel launches."""
+    from m4depth_tpu_torch.models import M4DepthV1
+    from m4depth_tpu_torch.train.step import compile_train_step
+    from m4depth_tpu_torch.utils import tracing
+
+    cfg = ModelConfig(**D4_NARROW)
+    model = M4DepthV1(cfg, device=cuda, seed=8)
+    step = compile_train_step(model, make_optimizer(
+        model, TrainConfig(learning_rate=1e-4)))
+    batch = train_batch_on(cuda, b=2, T=3, hw=64, seed=7)
+    for i in range(3):
+        before = tracing.counters()
+        launches = [k.launches for k in GLUE_V1_KERNELS]
+        step(batch)
+        torch.cuda.synchronize()
+        assert _glue_v1_calls(before, tracing.counters()) == (
+            (0, 3 * 4) if i < 2 else (0, 0)), i
+        assert [k.launches - n for k, n in zip(GLUE_V1_KERNELS,
+                                               launches)] == [0] * 3, i

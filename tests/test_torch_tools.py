@@ -37,11 +37,15 @@ def test_memory_footprint(capsys):
     assert "device memory: not measured" in out
 
 
-def test_fps_with_profile(capsys, tmp_path):
-    assert fps.main(TINY + ["--n", "2", "--profile",
+@pytest.mark.parametrize("model", ["m4depth", "m4depth-v1"])
+def test_fps_with_profile(capsys, tmp_path, model):
+    assert fps.main(TINY + ["--n", "2", "--profile", "--model", model,
                             "--log_dir", str(tmp_path)]) == 0
     out = capsys.readouterr().out
-    assert "fps=" in out and "ms/frame=" in out
+    assert "fps=" in out and "ms/frame=" in out and f"model={model}" in out
+    # on the CPU every level runs its family's plain glue
+    family = "decoder_v1" if model == "m4depth-v1" else "decoder"
+    assert f"{family} kernels 0, plain 0" not in out
     assert "device time: not measured" in out      # no device on the CPU
     assert list(tmp_path.glob("trace-*.json"))
 
