@@ -135,17 +135,12 @@ class DecoderLevel(nn.Module):
             element resets (training windows).
 
         The glue around the cost volumes and the refiner (``ops/glue.py``)
-        runs through its fused wrappers: on CUDA tensors the kernels of
-        ``ops/csrc/glue.cu``, with grad enabled through their autograd
-        Functions, whose backwards are the kernels of
-        ``ops/csrc/glue_backward.cu``; on CPU tensors the plain PyTorch
-        versions. The counters ``decoder.glue_fused`` and
-        ``decoder.glue_plain`` count the calls of each.
+        runs through its fused wrappers, which choose between the kernels
+        of ``ops/csrc/glue.cu`` (under grad through their autograd
+        Functions) and the plain PyTorch versions.
         """
         cfg, abl = self.cfg, self.cfg.ablation
         cuts = cfg.num_cuts(self.level)
-        tracing.tally("decoder.glue_fused" if curr_f.device.type == "cuda"
-                      else "decoder.glue_plain")
 
         # at the deepest level the deeper estimate's stand-in is (1000, 1, 0)
         prev, cam_l, curr_p, prev_p, para_prev_t = glue_prep_fused(

@@ -42,11 +42,8 @@ from m4depth_tpu_torch.models.encoder import Conv3x3, leaky_relu
 from m4depth_tpu_torch.models.m4depth import Device, ModelState
 from m4depth_tpu_torch.ops import spatial_cost_volume_fused
 from m4depth_tpu_torch.ops.glue_v1 import (
-    glue_v1_assemble,
     glue_v1_assemble_fused,
-    glue_v1_finish,
     glue_v1_finish_fused,
-    glue_v1_prep,
     glue_v1_prep_fused,
 )
 from m4depth_tpu_torch.utils import tracing
@@ -110,35 +107,22 @@ class DecoderLevelV1(nn.Module):
         memory. ``state`` is the last frame's memory of this level, or None
         (no temporal memory); ``camera`` is at full resolution.
 
-        The glue around the SNCV and the refiner (``ops/glue_v1.py``):
-        without grad the fused wrappers, which launch the kernels of
-        ``ops/csrc/glue_v1.cu`` on CUDA tensors, with grad the plain PyTorch
-        versions, which autograd differentiates (the kernels have no
-        backward). The counters ``decoder_v1.glue_fused`` (kernels) and
-        ``decoder_v1.glue_plain`` count the calls of each."""
+        The glue around the SNCV and the refiner (``ops/glue_v1.py``)
+        runs through its fused wrappers, which choose between the kernels
+        of ``ops/csrc/glue_v1.cu`` and the plain PyTorch versions."""
         cfg = self.cfg
-        fused = not torch.is_grad_enabled()
-        if fused:
-            prep, assemble, finish = (glue_v1_prep_fused,
-                                      glue_v1_assemble_fused,
-                                      glue_v1_finish_fused)
-        else:
-            prep, assemble, finish = (glue_v1_prep, glue_v1_assemble,
-                                      glue_v1_finish)
-        tracing.tally("decoder_v1.glue_fused" if fused and curr_f.is_cuda
-                      else "decoder_v1.glue_plain")
         scale = 2.0 ** self.level
-        f0_w, log_d0w, log_dprev = prep(curr_f, state, deeper_depth,
-                                        new_traj, rot, trans, camera, scale)
+        f0_w, log_d0w, log_dprev = glue_v1_prep_fused(
+            curr_f, state, deeper_depth, new_traj, rot, trans, camera, scale)
         cv = spatial_cost_volume_fused(curr_f, f0_w, cfg.search_range, 1,
                                        cfg.torch_cv_dtype, cfg.leaky_slope)
-        x = assemble(curr_f, cv, log_d0w, log_dprev, rot, trans, camera,
-                     scale)
+        x = glue_v1_assemble_fused(curr_f, cv, log_d0w, log_dprev, rot,
+                                   trans, camera, scale)
         tracing.mark(f"refiner{self.level}", x.device)
         for conv in self.convs:
             x = leaky_relu(conv(x), cfg.leaky_slope)
         tracing.mark(f"glue{self.level}", x.device)
-        depth = finish(x, cfg.leaky_slope)
+        depth = glue_v1_finish_fused(x, cfg.leaky_slope)
         return depth, depth
 
 

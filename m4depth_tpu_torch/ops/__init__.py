@@ -40,6 +40,18 @@ KERNELS = {k.symbol: k for k in (
     GLUE_FINISH_BACKWARD_KERNEL, GLUE_V1_PREP_KERNEL,
     GLUE_V1_ASSEMBLE_KERNEL, GLUE_V1_FINISH_KERNEL)}
 
+
+def glue_launches(since=None, calls: int = 1):
+    """Each decoder-glue kernel's runs on the device
+    (``CudaKernel.launches``, replays counted) by its C entry point: so
+    far, or with ``since`` (an earlier result) since then over ``calls``.
+    Which path the glue's wrappers took reads from them."""
+    now = {name: k.launches for name, k in KERNELS.items()
+           if name.startswith("glue")}
+    if since is None:
+        return now
+    return {name: (n - since[name]) / calls for name, n in now.items()}
+
 __all__ = [
     "DSCVFunction", "DSCV_BACKWARD_KERNEL", "DSCV_KERNEL",
     "GLUE_ASSEMBLE_BACKWARD_KERNEL", "GLUE_ASSEMBLE_KERNEL",
@@ -47,6 +59,7 @@ __all__ = [
     "GLUE_PREP_BACKWARD_KERNEL", "GLUE_PREP_KERNEL",
     "GLUE_V1_ASSEMBLE_KERNEL", "GLUE_V1_FINISH_KERNEL", "GLUE_V1_PREP_KERNEL",
     "KERNELS", "SNCVFunction", "SNCV_BACKWARD_KERNEL", "SNCV_KERNEL",
-    "dense_image_warp", "parallax_sweeping_cv", "parallax_sweeping_cv_fused",
+    "dense_image_warp", "glue_launches", "parallax_sweeping_cv",
+    "parallax_sweeping_cv_fused",
     "spatial_cost_volume", "spatial_cost_volume_fused",
 ]

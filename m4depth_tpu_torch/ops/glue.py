@@ -19,16 +19,23 @@ around its two cost volumes and its refiner, in three steps:
 Every function takes and returns tensors, tuples of them and a ``Camera``:
 an estimate is a tuple ``(depth, parallax, other)`` of float32 maps
 ``[b, h, w, 1 | 1 | n_other]``. The plain versions are autograd's. Each
-``*_fused`` wrapper takes the same arguments: on CPU tensors it runs the
-plain version; on CUDA tensors it launches its kernel, through its
-autograd Function (``GluePrepFunction``, ``GlueAssembleFunction``,
-``GlueFinishFunction``) where grad is enabled and an input it
-differentiates requires grad. The Functions' backwards launch the
-kernels of ``csrc/glue_backward.cu``, whose plain versions are
-``glue_prep_backward``, ``glue_assemble_backward`` and
-``glue_finish_backward`` (autograd's formulas for the plain forwards,
-written out), and whose wrappers are the ``*_backward_fused`` ones. The
-decoder calls the fused wrappers on every path, training included.
+``*_fused`` wrapper takes the same arguments and chooses from what it can
+observe, as V1's wrappers (``ops/glue_v1.py``) do:
+
+* on CPU tensors, the plain version;
+* on CUDA tensors that need no gradient, its kernel;
+* on CUDA tensors that need one (grad is enabled and an input it
+  differentiates requires grad: training), its kernel through its
+  autograd Function (``GluePrepFunction``, ``GlueAssembleFunction``,
+  ``GlueFinishFunction``), whose backward launches the kernels of
+  ``csrc/glue_backward.cu``.
+
+The backwards' plain versions are ``glue_prep_backward``,
+``glue_assemble_backward`` and ``glue_finish_backward`` (autograd's
+formulas for the plain forwards, written out), and their wrappers the
+``*_backward_fused`` ones. The decoder calls only the wrappers, on every
+path. The choice is no fallback: on CUDA tensors a missing build or a
+failed launch raises.
 
 No gradient reaches the previous depth (the plain glue detaches its
 parallax too), the motion or the camera (nor through the cost-volume

@@ -15,11 +15,18 @@ does around its cost volume and its refiner, in three steps:
 * ``glue_v1_finish``, after the refiner: the inverse of its last leaky
   ReLU, clipped to [-7, 7], as depth ``exp(x) * 10``.
 
-The plain versions are autograd's, and the level runs them with grad
-enabled. Each ``*_fused`` wrapper takes the same arguments: on CPU tensors
-it runs the plain version; on CUDA tensors it launches its kernel, which
-has no backward, so it raises (``ValueError``) where grad is enabled and
-an input requires grad.
+The plain versions are autograd's. Each ``*_fused`` wrapper takes the
+same arguments and chooses from what it can observe, as the d6 wrappers
+of ``ops/glue.py`` do:
+
+* on CPU tensors, the plain version;
+* on CUDA tensors that need no gradient, its kernel;
+* on CUDA tensors that need one (grad is enabled and an input requires
+  grad: training), the plain version, because the kernels have no
+  backward.
+
+The decoder level calls only the wrappers. The choice is no fallback: on
+CUDA tensors without grad a missing build or a failed launch raises.
 """
 
 from __future__ import annotations
@@ -167,14 +174,6 @@ def glue_v1_finish(out: torch.Tensor, slope: float) -> torch.Tensor:
 # -- the kernels ---------------------------------------------------------
 
 
-def _refuse_grad(name: str, tensors) -> None:
-    """Raise if grad is enabled and one of ``tensors`` requires it: the
-    kernels have no backward."""
-    if _differentiates(tensors):
-        raise ValueError(f"{name}: the CUDA kernel gives its inputs no "
-                         "gradient, and one of them requires grad")
-
-
 def _level(name: str, curr_f: torch.Tensor):
     """``curr_f``'s device and shape, checked as a kernel input."""
     if curr_f.dim() != 4:
@@ -190,14 +189,13 @@ def glue_v1_prep_fused(curr_f: torch.Tensor,
                        new_traj: Optional[torch.Tensor], rot: torch.Tensor,
                        trans: torch.Tensor, camera: Camera,
                        scale: float) -> Prepared:
-    """:func:`glue_v1_prep` on CPU tensors; on CUDA ones ``glue_v1_prep``
-    of ``csrc/glue_v1.cu`` (h and w at least 2)."""
+    """:func:`glue_v1_prep`, or ``glue_v1_prep`` of ``csrc/glue_v1.cu``
+    on CUDA tensors that need no gradient (h and w at least 2)."""
     tensors = [curr_f, rot, trans, camera.f, camera.c, *(state or ())] + [
         t for t in (deeper, new_traj) if t is not None]
-    if _on_cpu(tensors):
+    if _on_cpu(tensors) or _differentiates(tensors):
         return glue_v1_prep(curr_f, state, deeper, new_traj, rot, trans,
                             camera, scale)
-    _refuse_grad("glue_v1_prep", tensors)
     dev, (b, h, w, C) = _level("glue_v1_prep", curr_f)
     if h < 2 or w < 2:
         raise ValueError(f"glue_v1_prep: a {h}x{w} level is below the "
@@ -241,14 +239,13 @@ def glue_v1_assemble_fused(curr_f: torch.Tensor, cv: torch.Tensor,
                            log_d0w: torch.Tensor, log_dprev: torch.Tensor,
                            rot: torch.Tensor, trans: torch.Tensor,
                            camera: Camera, scale: float) -> torch.Tensor:
-    """:func:`glue_v1_assemble` on CPU tensors; on CUDA ones
-    ``glue_v1_assemble`` of ``csrc/glue_v1.cu``."""
+    """:func:`glue_v1_assemble`, or ``glue_v1_assemble`` of
+    ``csrc/glue_v1.cu`` on CUDA tensors that need no gradient."""
     tensors = [curr_f, cv, log_d0w, log_dprev, rot, trans, camera.f,
                camera.c]
-    if _on_cpu(tensors):
+    if _on_cpu(tensors) or _differentiates(tensors):
         return glue_v1_assemble(curr_f, cv, log_d0w, log_dprev, rot, trans,
                                 camera, scale)
-    _refuse_grad("glue_v1_assemble", tensors)
     dev, (b, h, w, C) = _level("glue_v1_assemble", curr_f)
     check_kernel_inputs("glue_v1_assemble", (cv,), (torch.float32,), dev)
     check_kernel_inputs("glue_v1_assemble", (log_d0w, log_dprev),
@@ -273,12 +270,11 @@ def glue_v1_assemble_fused(curr_f: torch.Tensor, cv: torch.Tensor,
 
 
 def glue_v1_finish_fused(out: torch.Tensor, slope: float) -> torch.Tensor:
-    """:func:`glue_v1_finish` on CPU tensors; on CUDA ones
-    ``glue_v1_finish`` of ``csrc/glue_v1.cu``, which reads ``out`` in its
-    own dtype."""
-    if _on_cpu([out]):
+    """:func:`glue_v1_finish`, or ``glue_v1_finish`` of
+    ``csrc/glue_v1.cu`` on CUDA tensors that need no gradient, which reads
+    ``out`` in its own dtype."""
+    if _on_cpu([out]) or _differentiates([out]):
         return glue_v1_finish(out, slope)
-    _refuse_grad("glue_v1_finish", [out])
     dev = out.device
     check_kernel_inputs("glue_v1_finish", (out,), CONV_DTYPES, dev)
     if out.dim() != 4 or out.shape[3] != 1:

@@ -10,15 +10,21 @@ to print.
 from __future__ import annotations
 
 import contextlib
-from typing import Callable, Dict, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch.utils._pytree import tree_flatten
 
 from m4depth_tpu_torch.config import ModelConfig, TrainConfig
 from m4depth_tpu_torch.geometry import Camera, parallax_sweep_flows
 from m4depth_tpu_torch.models import M4Depth
-from m4depth_tpu_torch.ops import glue, glue_v1, spatial_cost_volume
+from m4depth_tpu_torch.ops import (
+    glue,
+    glue_launches,
+    glue_v1,
+    spatial_cost_volume,
+)
 from m4depth_tpu_torch.train import (
     TrainState,
     compile_train_step,
@@ -410,6 +416,21 @@ def plain_glue():
             setattr(module, n, fn)
 
 
+def assert_runs_plain_glue(call: Callable[[], Any]) -> None:
+    """``call()`` runs the plain glue: it launches no glue kernel
+    (``ops.glue_launches``) and equals the same call under ``plain_glue``
+    bit for bit."""
+    before = glue_launches()
+    got = tree_flatten(call())[0]
+    _require(glue_launches() == before, "a glue kernel launched")
+    with plain_glue():
+        want = tree_flatten(call())[0]
+    _require(len(got) == len(want), "the outputs' structures differ")
+    for i, (g, w) in enumerate(zip(got, want)):
+        _require(torch.equal(g, w), f"output {i} differs from the plain "
+                 "glue's")
+
+
 def _step_result(step, model, batch) -> dict:
     scalars = step(batch)
     return dict(scalars={n: v.item() for n, v in scalars.items()},
@@ -426,8 +447,9 @@ def assert_glue_steps_close(dev, steps: int = 3, b: int = 2, T: int = 3,
     backwards; ``cfg_kw`` adds model settings, such as remat), each held by
     ``assert_step_close`` to one eager step with the plain glue
     (``plain_glue``) from the compiled run's state before it (weights, Adam
-    state, count). Returns each step's ``assert_train_step_close``
-    result."""
+    state, count). Both steps update through ``Optimizer.apply_gradients``,
+    so the weights differ only through the gradients. Returns each step's
+    ``assert_train_step_close`` result."""
     cfg = ModelConfig(compute_dtype="float32", cv_dtype="float32", **cfg_kw)
     batch = train_batch(b, T, hw, seed, [1.0, 0.001, -0.002, 0.001],
                         [0.3, 0.1, 0.02], dev)

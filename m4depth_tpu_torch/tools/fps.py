@@ -8,11 +8,12 @@ frame after another at ``--size`` (or ``--height`` x ``--width``), batch
 and with it the epipolar field), through ``parallel.serving.compile_step``
 (one CUDA graph replayed a frame on the card, as the JAX tool times its
 jitted step). After 10 frames of warm-up, the best of 3 runs of ``--n``
-frames, each ending in a synchronise, gives ms/frame and frames/s; the
-host's time in the compiled call a frame comes from ``utils.tracing``'s
-``compiled.replays`` counter over those runs (prepare, launch, finish),
-and the eager first call's and the capture's from ``compiled.warmups``
-and ``compiled.captures``.
+frames, each ending in a synchronise, gives ms/frame and frames/s; each
+decoder-glue kernel's launches a frame over those runs come from
+``ops.glue_launches``, the host's time in the compiled call a frame from
+``utils.tracing``'s ``compiled.replays`` counter (prepare, launch,
+finish), and the eager first call's and the capture's from
+``compiled.warmups`` and ``compiled.captures``.
 
 ``--profile`` then records ``PROFILED_FRAMES`` replayed frames with
 ``utils.profiling.device_trace`` and splits their device time by the
@@ -43,6 +44,7 @@ from m4depth_tpu_torch import resolve_device
 from m4depth_tpu_torch.config import DTYPES, ModelConfig
 from m4depth_tpu_torch.geometry import Camera
 from m4depth_tpu_torch.models import M4Depth, M4DepthV1, init_state
+from m4depth_tpu_torch.ops import glue_launches
 from m4depth_tpu_torch.parallel.serving import compile_step
 from m4depth_tpu_torch.utils import tracing
 from m4depth_tpu_torch.utils.profiling import device_breakdown, device_trace
@@ -52,8 +54,6 @@ REPEATS = 3
 PROFILED_FRAMES = 10
 TOP_OPS = 16
 FAMILIES = {"m4depth": M4Depth, "m4depth-v1": M4DepthV1}
-# each family's decoder-glue counters (utils.tracing.tally), by family
-GLUE_COUNTERS = ("decoder", "decoder_v1")
 
 
 def parse_args(argv=None):
@@ -153,14 +153,12 @@ def print_breakdown(r: dict, unit: str) -> None:
         print(f"  {us:10.1f} us {100 * us / busy:5.1f}%  {name} ({stage})")
 
 
-def print_dispatch(d: dict, unit: str) -> None:
-    """The host's time in the compiled call a ``unit``, and the warm-up's
-    and the capture's, and the decoder levels by their glue
+def print_dispatch(d: dict, glue: dict, unit: str) -> None:
+    """The glue kernels' launches a ``unit`` (``glue``), the host's time in
+    the compiled call a ``unit``, and the warm-up's and the capture's
     (``dispatch``)."""
-    print("decoder levels by their glue (counted in Python: the eager first "
-          "call and the capture): " + "; ".join(
-              f"{name} kernels {d[name + '.glue_fused']}, plain "
-              f"{d[name + '.glue_plain']}" for name in GLUE_COUNTERS))
+    print(f"glue kernel launches a {unit} over the timed calls: " + ", ".join(
+        f"{name} {n:g}" for name, n in glue.items()))
     if d.get("ns") is None:
         print("host time in the compiled call: no replay timed")
         return
@@ -180,40 +178,33 @@ def dispatch(start: dict, before: dict, after: dict,
     counter's mean host time a timed replay, by part, the mean
     ``compiled.warmups`` and ``compiled.captures`` call since the start,
     and with ``entry`` that counter's mean timed call (us; None where no
-    such call ran); and the decoder levels that ran the glue's kernels
-    (``decoder.glue_fused``, V1's ``decoder_v1.glue_fused``) and its plain
-    version (``decoder.glue_plain``, ``decoder_v1.glue_plain``) since the
-    start."""
+    such call ran)."""
     out = {key: tracing.mean_us(after, "compiled.replays", before, key)
            for key in ("ns", "prepare_ns", "launch_ns", "finish_ns")}
     out.update(warm_up=tracing.mean_us(after, "compiled.warmups", start),
                capture=tracing.mean_us(after, "compiled.captures", start),
                entry=entry and tracing.mean_us(after, entry, before))
-    for family in GLUE_COUNTERS:
-        for kind in ("fused", "plain"):
-            name = f"{family}.glue_{kind}"
-            out[name] = (after.get(name, {}).get("calls", 0)
-                         - start.get(name, {}).get("calls", 0))
     return out
 
 
 def run(a) -> dict:
     """ms/frame and frames/s, the host's time in the compiled call a frame
-    (``dispatch``), and with ``--profile`` ``device_breakdown``'s result
-    over replayed frames."""
+    (``dispatch``), the glue kernels' launches a frame, and with
+    ``--profile`` ``device_breakdown``'s result over replayed frames."""
     stream, dev = make_stream(a)
     start = tracing.counters()
     depth = stream(1, new_traj=True)
     stream(WARMUP_FRAMES)
     best = float("inf")
-    before = tracing.counters()
+    before, glue = tracing.counters(), glue_launches()
     for _ in range(REPEATS):
         t0 = time.perf_counter()
         depth = stream(a.n)
         best = min(best, time.perf_counter() - t0)
     out = dict(ms_per_frame=1e3 * best / a.n, fps=a.n * a.batch / best,
                finite=bool(torch.isfinite(depth).all()), device=str(dev),
-               dispatch=dispatch(start, before, tracing.counters()))
+               dispatch=dispatch(start, before, tracing.counters()),
+               glue=glue_launches(glue, REPEATS * a.n))
     if a.profile:
         log_dir = a.log_dir or tempfile.mkdtemp(prefix="m4depth_fps_")
         with device_trace(log_dir) as trace:
@@ -231,7 +222,7 @@ def main(argv=None) -> int:
           f"model={a.model} batch={a.batch} size={h}x{w} levels={a.levels} "
           f"cv_dtype={a.cv_dtype} device={r['device']} (best of {REPEATS} "
           f"runs of {a.n} frames)", flush=True)
-    print_dispatch(r["dispatch"], "frame")
+    print_dispatch(r["dispatch"], r["glue"], "frame")
     if a.profile:
         print(f"trace: {r['trace']} ({PROFILED_FRAMES} replayed frames)")
         print_breakdown(r["breakdown"], "frame")

@@ -86,8 +86,11 @@ class Optimizer:
     """Adam with a per-step learning rate and an optional global-norm clip
     (``optax.chain(clip_by_global_norm, adam(schedule))``).
 
-    ``count`` is the number of updates applied; the next update runs at
-    ``lr_schedule(count)``.
+    ``adam`` holds the parameter groups and the Adam state in
+    ``torch.optim.Adam``'s layout, which a checkpoint saves; its own
+    ``step`` is not called: every training step updates through
+    ``apply_gradients``. ``count`` is the number of updates applied; the
+    next update runs at ``lr_schedule(count)``.
     """
 
     adam: torch.optim.Adam
@@ -108,27 +111,15 @@ class Optimizer:
                                     g / norm * self.grad_clip_norm))
         return norm
 
-    def apply_gradients(self) -> torch.Tensor:
-        """Clip the parameters' ``.grad`` and take one Adam step; returns
-        the global gradient norm before the clip."""
-        params = [p for g in self.adam.param_groups for p in g["params"]
-                  if p.grad is not None]
-        norm = self.clip_([p.grad for p in params])
-        lr = self.lr_schedule(self.count)
-        for group in self.adam.param_groups:
-            group["lr"] = lr
-        self.adam.step()
-        self.count += 1
-        return norm
-
     @torch.no_grad()
-    def apply_gradients_at(self, lr: torch.Tensor) -> torch.Tensor:
-        """``apply_gradients`` as a compiled step runs it: the clip, then
-        ``adam_update_`` at the learning rate ``lr``, a 0-d tensor on the
-        parameters' device, so that nothing is read on the host. The Adam
+    def apply_gradients(self, lr: torch.Tensor) -> torch.Tensor:
+        """The update of every training step: clip the parameters'
+        ``.grad``, then ``adam_update_`` at the learning rate ``lr``, a 0-d
+        tensor on the parameters' device, so that nothing is read on the
+        host and a CUDA graph replays it with each step's rate. The Adam
         state must exist (``init_adam_state``); ``count`` and the groups'
-        rates are the caller's to advance. Returns the global gradient
-        norm before the clip."""
+        rates are the caller's to advance (the train step's host side).
+        Returns the global gradient norm before the clip."""
         params = [p for g in self.adam.param_groups for p in g["params"]
                   if p.grad is not None]
         grads = [p.grad for p in params]
@@ -185,9 +176,13 @@ class TrainState:
                         "count": self.optimizer.count})
 
     def load_state_dict(self, state: dict) -> "TrainState":
+        """Load a ``state_dict`` (its step counts, saved on the CPU, go to
+        the parameters' device: ``init_adam_state``). Load before building
+        a compiled step: its graph holds the tensors it was built with."""
         self.model.load_state_dict(state["model"], strict=True)
         self.optimizer.adam.load_state_dict(state["adam"])
         self.optimizer.count = int(state["count"])
+        init_adam_state(self.optimizer)
         return self
 
 
@@ -265,6 +260,11 @@ def make_train_step(
     given, augments the batch inside the step, keyed by ``augment_seed``
     and the optimiser's count of updates.
 
+    The update is ``Optimizer.apply_gradients`` at the schedule's rate,
+    written into a device scalar before each step, with device step
+    counts: ``compile_train_step``'s arithmetic, bit for bit. The Adam
+    state is made here (``init_adam_state``).
+
     ``model`` may be the ``data_parallel`` wrapper: the forward then runs
     through it (its backward all-reduces the gradients, so ``grad_norm`` is
     the global one), the loss through the wrapped model's, over the global
@@ -273,19 +273,16 @@ def make_train_step(
     global batch's). Every rank gets the same scalars, so every rank's NaN
     tripwire stops at the same step.
     """
-    return _train_step(_train_body(model, optimizer, with_images,
-                                   optimizer.apply_gradients),
-                       optimizer, augment_fn, augment_seed)
+    return _build_train_step(model, optimizer, with_images, augment_fn,
+                             augment_seed, as_graph=False)
 
 
 def _train_body(model, optimizer: Optimizer, with_images: bool,
-                apply_gradients: Callable[[], torch.Tensor]
-                ) -> Callable[[Batch], Dict[str, Any]]:
-    """The step both ``make_train_step`` and ``compile_train_step`` run:
-    the window's forward, the loss, the backward, ``apply_gradients()``
-    (which returns the global gradient norm before the clip), RMSE_log and
-    the images. Returns ``{"scalars": [loss, RMSE_log, grad_norm]}`` as one
-    stacked tensor, and ``"images"`` with ``with_images``. Through the
+                lr: torch.Tensor) -> Callable[[Batch], Dict[str, Any]]:
+    """The body of every train step: the window's forward, the loss, the
+    backward, ``optimizer.apply_gradients(lr)``, RMSE_log and the images.
+    Returns ``{"scalars": [loss, RMSE_log, grad_norm]}`` as one stacked
+    tensor, and ``"images"`` with ``with_images``. Through the
     ``data_parallel`` wrapper the loss is the global batch's and ``loss``
     and ``RMSE_log`` are the means over the ranks. After the model's own
     stage marks it marks ``loss``, ``backward``, ``optimizer`` and
@@ -306,7 +303,7 @@ def _train_body(model, optimizer: Optimizer, with_images: bool,
         tracing.mark("backward", device)
         loss.backward()
         tracing.mark("optimizer", device)
-        grad_norm = apply_gradients()
+        grad_norm = optimizer.apply_gradients(lr)
         tracing.mark("metrics", device)
         with torch.no_grad():
             gt = batch["depth"][:, -1]
@@ -323,14 +320,28 @@ def _train_body(model, optimizer: Optimizer, with_images: bool,
     return body
 
 
-def _train_step(run: Callable[[Batch], Dict[str, Any]], optimizer: Optimizer,
-                augment_fn, augment_seed: int, compiled=None
-                ) -> Callable[[Batch], Dict[str, torch.Tensor]]:
-    """``train_step(batch)``: ``augment_fn`` at the optimiser's count,
-    then ``run`` (a ``_train_body``, or its compiled form), its stacked
-    scalars returned by name; in the host spans ``train.step`` and
-    ``train.augment``. A call that replayed ``compiled`` counts in the
-    ``train.step`` counter (``utils.tracing``)."""
+def _build_train_step(model, optimizer: Optimizer, with_images: bool,
+                      augment_fn, augment_seed: int, as_graph: bool
+                      ) -> Callable[[Batch], Dict[str, torch.Tensor]]:
+    """``train_step(batch)`` of ``make_train_step`` and
+    ``compile_train_step``: ``augment_fn`` at the optimiser's count; the
+    host side of the step, which writes the schedule's rate at ``count``
+    into the device scalar that the body's update reads and into the
+    groups' ``lr``; ``_train_body``, wrapped in
+    ``utils.graphs.Compiled`` when ``as_graph``; then ``count += 1``. Its
+    stacked scalars are returned by name; in the host spans ``train.step``
+    and ``train.augment``. A call that replayed the compiled body counts
+    in the ``train.step`` counter (``utils.tracing``). The Adam state is
+    made here (``init_adam_state``)."""
+    from m4depth_tpu_torch.utils.graphs import Compiled
+
+    adam = optimizer.adam
+    init_adam_state(optimizer)
+    lr = torch.zeros((), dtype=torch.float32,
+                     device=adam.param_groups[0]["params"][0].device)
+    body = _train_body(model, optimizer, with_images, lr)
+    compiled = Compiled(body) if as_graph else None
+    run = body if compiled is None else compiled
 
     def train_step(batch: Batch) -> Dict[str, torch.Tensor]:
         t0 = tracing.clock()
@@ -338,7 +349,12 @@ def _train_step(run: Callable[[Batch], Dict[str, Any]], optimizer: Optimizer,
             if augment_fn is not None:
                 with tracing.span("train.augment"):
                     batch = augment_fn(batch, augment_seed, optimizer.count)
+            rate = optimizer.lr_schedule(optimizer.count)
+            lr.fill_(rate)
+            for group in adam.param_groups:
+                group["lr"] = rate
             out = run(batch)
+            optimizer.count += 1
         if compiled is not None and compiled.replayed:
             tracing.count("train.step", t0)
         loss, rmse, grad_norm = out["scalars"]
@@ -347,6 +363,7 @@ def _train_step(run: Callable[[Batch], Dict[str, Any]], optimizer: Optimizer,
             result["images"] = out["images"]
         return result
 
+    train_step.compiled = compiled
     return train_step
 
 
@@ -389,16 +406,14 @@ def make_streaming_eval_step(model: M4Depth):
     return eval_step
 
 
-# -- compiled steps: the counterparts of the JAX package's jitted steps -------
-
-
 def init_adam_state(optimizer: Optimizer) -> None:
     """Give each parameter of ``optimizer`` the Adam state that
     ``torch.optim.Adam`` makes at its first step (a step count and two
     zero moments), where it has none yet, with the step counts on the
-    parameters' device, as ``adam_update_`` takes them. The layout is
-    ``torch.optim.Adam``'s own, so a checkpoint (``TrainState.state_dict``)
-    loads into either step."""
+    parameters' device, as ``adam_update_`` takes them. Building a train
+    step and loading a checkpoint call it; the layout is
+    ``torch.optim.Adam``'s own, so a checkpoint written by its ``step``
+    loads too."""
     adam = optimizer.adam
     for group in adam.param_groups:
         for p in group["params"]:
@@ -437,6 +452,9 @@ def adam_update_(params, grads, exp_avgs, exp_avg_sqs, steps,
     torch._foreach_addcdiv_(params, exp_avgs, denom, value=-1.0)
 
 
+# -- compiled steps: the counterparts of the JAX package's jitted steps -------
+
+
 def compile_train_step(
     model: M4Depth,
     optimizer: Optimizer,
@@ -454,9 +472,9 @@ def compile_train_step(
     Adam are one CUDA graph (``utils.graphs.Compiled``); the parameters,
     the Adam state and the gradients are its buffers, updated in place.
     The schedule stays on the host: each step's rate is written into a
-    device scalar before the replay, and Adam runs as ``adam_update_``
-    with that rate and device step counts, on the CPU too, where the step
-    runs eagerly. ``augment_fn`` runs eagerly on the batch before it is
+    device scalar before the replay, which ``Optimizer.apply_gradients``
+    reads, as in ``make_train_step``. On the CPU the step runs eagerly.
+    ``augment_fn`` runs eagerly on the batch before it is
     copied into the graph's inputs. The results are copied out of the
     graph's buffers (the scalars as one stacked copy), so a loss held
     across later steps (``fit``'s lagged NaN tripwire) keeps its value.
@@ -467,32 +485,11 @@ def compile_train_step(
     """
     from torch.nn.parallel import DistributedDataParallel
 
-    from m4depth_tpu_torch.utils.graphs import Compiled
-
     if isinstance(model, DistributedDataParallel):
         raise ValueError("compile_train_step runs on one process; the "
                          "data-parallel step is make_train_step's")
-    adam = optimizer.adam
-    init_adam_state(optimizer)
-    lr = torch.zeros((), dtype=torch.float32,
-                     device=adam.param_groups[0]["params"][0].device)
-
-    compiled = Compiled(_train_body(model, optimizer, with_images,
-                                    lambda: optimizer.apply_gradients_at(lr)))
-
-    def run(batch: Batch) -> Dict[str, Any]:
-        rate = optimizer.lr_schedule(optimizer.count)
-        lr.fill_(rate)
-        for group in adam.param_groups:
-            group["lr"] = rate
-        out = compiled(batch)
-        optimizer.count += 1
-        return out
-
-    train_step = _train_step(run, optimizer, augment_fn, augment_seed,
-                             compiled)
-    train_step.compiled = compiled
-    return train_step
+    return _build_train_step(model, optimizer, with_images, augment_fn,
+                             augment_seed, as_graph=True)
 
 
 def compile_windowed_eval_step(model: M4Depth):

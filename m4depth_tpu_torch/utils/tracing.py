@@ -41,15 +41,9 @@ device work (the profiler also draws such a range on the device timeline).
 (signature, copies in), ``launch`` (``cudaGraphLaunch``) and ``finish``
 (the launch counts, the copies out); ``compiled.warmups`` and
 ``compiled.captures`` count the calls that ran eagerly and those that
-captured (and replayed once), so neither enters a replay's mean.
-``decoder.glue_fused`` and ``decoder.glue_plain`` (``tally``, untimed)
-count ``DecoderLevel`` calls by the glue they ran: its kernels (on CUDA
-tensors, with grad or without) or its plain version (on CPU tensors);
-``decoder_v1.glue_fused`` and ``decoder_v1.glue_plain`` count
-``DecoderLevelV1`` calls the same way, whose kernels run on CUDA tensors
-without grad and whose plain version runs with grad (training) or on CPU
-tensors. They count in Python, so a captured graph counts its levels once,
-at its capture, and a replay none.
+captured (and replayed once), so neither enters a replay's mean. Which
+path a kernel's wrapper took reads from the kernel's own ``launches``
+(``ops._build.CudaKernel``), which counts replays too.
 """
 
 from __future__ import annotations
@@ -160,11 +154,6 @@ def count(name: str, since: int) -> None:
     """One call of ``name`` that started at ``since`` (``clock()``) and
     ends now."""
     COUNTERS.add(name, clock() - since)
-
-
-def tally(name: str) -> None:
-    """One call of ``name``, untimed."""
-    COUNTERS.add(name, 0)
 
 
 def count_replay(t0: int, t1: int, t2: int) -> None:

@@ -36,6 +36,7 @@ from m4depth_tpu_torch.ops import (
     GLUE_V1_PREP_KERNEL,
     SNCV_BACKWARD_KERNEL,
     SNCV_KERNEL,
+    glue_launches,
     parallax_sweeping_cv,
     parallax_sweeping_cv_fused,
     spatial_cost_volume,
@@ -1383,20 +1384,12 @@ def test_trajectory_with_fused_glue_matches_plain(cuda):
     print(f"worst median, 99th percentile relative error: {worst}")
 
 
-def _glue_calls(before, after):
-    return tuple(after.get(k, {}).get("calls", 0)
-                 - before.get(k, {}).get("calls", 0)
-                 for k in ("decoder.glue_fused", "decoder.glue_plain"))
-
-
 def test_compiled_d6_frame_replays_its_glue_kernels(cuda):
     """The compiled d6 frame (bfloat16 convs, 128x128) with the glue
-    kernels: each replay equals the eager ``M4Depth.step`` bit for bit;
-    its levels count as fused at the eager first call and at the capture
-    (``decoder.glue_fused`` 6, ``decoder.glue_plain`` 0) and not at a
-    replay, and each glue kernel runs once a level every call."""
+    kernels: each replay equals the eager ``M4Depth.step`` bit for bit,
+    and each glue kernel runs once a level every call (the eager first
+    call, the capture's replay, replays) and no other glue kernel runs."""
     from m4depth_tpu_torch.parallel import compile_step
-    from m4depth_tpu_torch.utils import tracing
 
     cfg = ModelConfig(**D6_BF16)
     hw = 128
@@ -1409,14 +1402,12 @@ def test_compiled_d6_frame_replays_its_glue_kernels(cuda):
                               for x in _graph_frames(1, hw, t, seed=17))
         cam = Camera(f, f.clone())
         reset = torch.tensor([t in (0, 3)], device=cuda)
-        before = tracing.counters()
-        launches = [k.launches for k in GLUE_KERNELS]
+        launches = glue_launches()
         state, depth = step(state, rgb, rot, trans, cam, reset)
         torch.cuda.synchronize()
-        assert _glue_calls(before, tracing.counters()) == (
-            (6, 0) if t < 2 else (0, 0)), t
-        assert [k.launches - n for k, n in zip(GLUE_KERNELS,
-                                               launches)] == [6] * 3, t
+        assert glue_launches(launches) == dict(
+            dict.fromkeys(launches, 0),
+            **{k.symbol: 6 for k in GLUE_KERNELS}), t
         eager, want = model.step(eager, rgb, rot, trans, cam, reset)
         assert torch.equal(depth, want), t
     assert step.graphs == 1
@@ -1424,30 +1415,25 @@ def test_compiled_d6_frame_replays_its_glue_kernels(cuda):
 
 def test_compiled_train_step_runs_the_plain_glue(cuda):
     """The compiled train step runs with grad, and its glue through the
-    kernels all the same (the plain glue runs on CPU tensors only): its
-    levels count as fused (one a level and frame at the eager first call
-    and at the capture) and none as plain, and every call, replays
-    included, launches each glue kernel and its backward as often as a
-    window of 3 frames at 4 levels holds them: glue_prep on every frame,
-    the rest from frame 1."""
+    kernels all the same (the plain glue runs on CPU tensors only): every
+    call, replays included, launches each glue kernel and its backward as
+    often as a window of 3 frames at 4 levels holds them (glue_prep on
+    every frame, the rest from frame 1), and no V1 glue kernel."""
     from m4depth_tpu_torch.train.step import compile_train_step
-    from m4depth_tpu_torch.utils import tracing
 
     cfg = ModelConfig(**D4_NARROW)
     model = M4Depth(cfg, device=cuda, seed=8)
     step = compile_train_step(model, make_optimizer(
         model, TrainConfig(learning_rate=1e-4)))
     batch = train_batch_on(cuda, b=2, T=3, hw=64, seed=7)
-    kernels = GLUE_KERNELS + GLUE_BACKWARD_KERNELS
+    want = dict(dict.fromkeys(glue_launches(), 0), **dict(zip(
+        (k.symbol for k in GLUE_KERNELS + GLUE_BACKWARD_KERNELS),
+        [3 * 4, 2 * 4, 2 * 4] + [2 * 4] * 3)))
     for i in range(3):
-        before = tracing.counters()
-        launches = [k.launches for k in kernels]
+        launches = glue_launches()
         step(batch)
         torch.cuda.synchronize()
-        assert _glue_calls(before, tracing.counters()) == (
-            (3 * 4, 0) if i < 2 else (0, 0)), i
-        assert [k.launches - n for k, n in zip(kernels, launches)] == [
-            3 * 4, 2 * 4, 2 * 4] + [2 * 4] * 3, i
+        assert glue_launches(launches) == want, i
 
 
 # -- V1's decoder glue kernels (ops/csrc/glue_v1.cu) -------------------------
@@ -1571,38 +1557,52 @@ def test_glue_v1_prep_takes_every_case(cuda, shape, dtype, rot_dim):
 
 
 def test_glue_v1_wrappers_raise_on_inputs_that_require_grad(cuda):
-    """Under grad a CUDA input that requires grad makes each V1 wrapper
-    raise (the kernels have no backward and nothing falls back to the plain
-    version); without grad the same inputs launch."""
+    """The V1 wrappers run the plain versions under grad: where grad is
+    enabled and a CUDA input requires grad (the features, the cost volume,
+    the rotation), each wrapper returns its plain version's result and
+    launches no glue kernel, and autograd's gradients through the
+    wrappers' chain equal those through the plain chain bit for bit.
+    Inputs that need no gradient launch the kernels with grad enabled, and
+    so do inputs that require grad under ``torch.no_grad``."""
     b, level, h, w, C = GLUE_V1_SHAPES[3]
     args = _glue_v1_inputs(b, level, h, w, C, 4, cuda, torch.bfloat16)
     curr_f, state, deeper, new_traj, rot, trans, cam, scale = args
     needs = curr_f.clone().requires_grad_()
-    with pytest.raises(ValueError, match="no gradient"):
-        glue_v1.glue_v1_prep_fused(needs, *args[1:])
-    with pytest.raises(ValueError, match="no gradient"):
-        glue_v1.glue_v1_prep_fused(curr_f, state, deeper, new_traj,
-                                   rot.clone().requires_grad_(), trans, cam,
-                                   scale)
-    f0_w, log_d0w, log_dprev = glue_v1.glue_v1_prep_fused(*args)
     cv = torch.randn(b, h, w, 81, device=cuda, requires_grad=True)
-    with pytest.raises(ValueError, match="no gradient"):
-        glue_v1.glue_v1_assemble_fused(curr_f, cv, log_d0w, log_dprev, rot,
-                                       trans, cam, scale)
+
+    def chain(prep, assemble, finish, rot):
+        f0_w, log_d0w, log_dprev = prep(needs, state, deeper, new_traj, rot,
+                                        trans, cam, scale)
+        x = assemble(needs, cv, log_d0w, log_dprev, rot, trans, cam, scale)
+        return f0_w, log_d0w, log_dprev, x, finish(x[..., :1], 0.1)
+
+    torch.cuda.synchronize()
+    launches = glue_launches()
+    for r in (rot, rot.clone().requires_grad_()):
+        got = chain(glue_v1.glue_v1_prep_fused, glue_v1.glue_v1_assemble_fused,
+                    glue_v1.glue_v1_finish_fused, r)
+        want = chain(glue_v1.glue_v1_prep, glue_v1.glue_v1_assemble,
+                     glue_v1.glue_v1_finish, r)
+        for i, (g, w_) in enumerate(zip(got, want)):
+            assert torch.equal(g, w_), i
+        leaves = (needs, cv) + ((r,) if r.requires_grad else ())
+        grads = [torch.autograd.grad(out[3].float().sum() + out[4].sum(),
+                                     leaves) for out in (got, want)]
+        for i, (g, w_) in enumerate(zip(*grads)):
+            assert torch.equal(g, w_), f"gradient {i}"
+    torch.cuda.synchronize()
+    assert glue_launches() == launches
     out = torch.randn(b, h, w, 1, device=cuda, requires_grad=True)
-    with pytest.raises(ValueError, match="no gradient"):
-        glue_v1.glue_v1_finish_fused(out, 0.1)
+    f0_w, log_d0w, log_dprev = glue_v1.glue_v1_prep_fused(*args)
     with torch.no_grad():
         glue_v1.glue_v1_prep_fused(needs, *args[1:])
-        glue_v1.glue_v1_assemble_fused(curr_f, cv, log_d0w, log_dprev, rot,
+        glue_v1.glue_v1_assemble_fused(needs, cv, log_d0w, log_dprev, rot,
                                        trans, cam, scale)
         glue_v1.glue_v1_finish_fused(out, 0.1)
-
-
-def _glue_v1_calls(before, after):
-    return tuple(after.get(k, {}).get("calls", 0)
-                 - before.get(k, {}).get("calls", 0)
-                 for k in ("decoder_v1.glue_fused", "decoder_v1.glue_plain"))
+    torch.cuda.synchronize()
+    assert glue_launches(launches) == dict(
+        dict.fromkeys(launches, 0), glue_v1_prep=2, glue_v1_assemble=1,
+        glue_v1_finish=1)
 
 
 @pytest.mark.parametrize("dtype,hw,b", [("float32", 128, 2),
@@ -1614,12 +1614,11 @@ def test_compiled_v1_step_with_glue_kernels_matches_plain(cuda, dtype, hw,
     call, the capture, replays) with the glue kernels against the eager
     ``M4DepthV1.step`` with the plain glue (``plain_glue``), five frames
     with single elements reset: float32 to MODEL_TOL, bfloat16 convs by
-    the bfloat16 depth rule. Each glue kernel launches once a level every
-    call, and the levels count as fused at the first call and the capture
-    (``decoder_v1.glue_fused`` 6 a call) and not at a replay."""
+    the bfloat16 depth rule. Each V1 glue kernel launches once a level
+    every call (the eager first call, the capture's replay, replays), and
+    no other glue kernel."""
     from m4depth_tpu_torch.models import M4DepthV1
     from m4depth_tpu_torch.parallel import compile_step
-    from m4depth_tpu_torch.utils import tracing
 
     cfg = ModelConfig(compute_dtype=dtype, cv_dtype=dtype)
     model = M4DepthV1(cfg, device=cuda, seed=6)
@@ -1630,14 +1629,12 @@ def test_compiled_v1_step_with_glue_kernels_matches_plain(cuda, dtype, hw,
     cam = Camera(f, f.clone())
     for t in range(5):
         reset = (torch.arange(b, device=cuda) == t % b) | (t == 0)
-        before = tracing.counters()
-        launches = [k.launches for k in GLUE_V1_KERNELS]
+        launches = glue_launches()
         states[0], got = step(states[0], rgb[t], rot, trans, cam, reset)
         torch.cuda.synchronize()
-        assert _glue_v1_calls(before, tracing.counters()) == (
-            (V1_LEVELS, 0) if t < 2 else (0, 0)), t
-        assert [k.launches - n for k, n in zip(
-            GLUE_V1_KERNELS, launches)] == [V1_LEVELS] * 3, t
+        assert glue_launches(launches) == dict(
+            dict.fromkeys(launches, 0),
+            **{k.symbol: V1_LEVELS for k in GLUE_V1_KERNELS}), t
         with plain_glue():
             states[1], want = model.step(states[1], rgb[t], rot, trans, cam,
                                          reset)
@@ -1683,13 +1680,11 @@ def test_v1_frame_dispatches_no_gather_or_cat(cuda):
 
 
 def test_compiled_v1_train_step_runs_the_plain_glue(cuda):
-    """The compiled V1 training step runs with grad, so its glue is the
-    plain version: its levels count as plain (one a level and frame at
-    the eager first call and at the capture), none as fused, and no V1
-    glue kernel launches."""
+    """The compiled V1 training step runs with grad, so the V1 wrappers
+    take the plain versions: no glue kernel launches in any call (the
+    eager first call, the capture's replay, replays)."""
     from m4depth_tpu_torch.models import M4DepthV1
     from m4depth_tpu_torch.train.step import compile_train_step
-    from m4depth_tpu_torch.utils import tracing
 
     cfg = ModelConfig(**D4_NARROW)
     model = M4DepthV1(cfg, device=cuda, seed=8)
@@ -1697,11 +1692,7 @@ def test_compiled_v1_train_step_runs_the_plain_glue(cuda):
         model, TrainConfig(learning_rate=1e-4)))
     batch = train_batch_on(cuda, b=2, T=3, hw=64, seed=7)
     for i in range(3):
-        before = tracing.counters()
-        launches = [k.launches for k in GLUE_V1_KERNELS]
+        launches = glue_launches()
         step(batch)
         torch.cuda.synchronize()
-        assert _glue_v1_calls(before, tracing.counters()) == (
-            (0, 3 * 4) if i < 2 else (0, 0)), i
-        assert [k.launches - n for k, n in zip(GLUE_V1_KERNELS,
-                                               launches)] == [0] * 3, i
+        assert glue_launches() == launches, i

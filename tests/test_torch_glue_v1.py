@@ -29,9 +29,13 @@ from m4depth_tpu_torch.geometry import (
 )
 from m4depth_tpu_torch.models import M4DepthV1, init_state, leaky_relu
 from m4depth_tpu_torch.models.m4depth_v1 import DecoderLevelV1
-from m4depth_tpu_torch.ops import dense_image_warp, glue_v1
-from m4depth_tpu_torch.ops import spatial_cost_volume_fused
-from m4depth_tpu_torch.utils import tracing
+from m4depth_tpu_torch.ops import (
+    dense_image_warp,
+    glue_launches,
+    glue_v1,
+    spatial_cost_volume_fused,
+)
+from m4depth_tpu_torch.testing import assert_runs_plain_glue
 
 # narrow widths at the V1 defaults' search range (radius 4, 81 offsets)
 WIDTHS = dict(num_levels=3, encoder_channels=(8, 12, 16))
@@ -229,19 +233,12 @@ def test_fused_wrappers_run_the_plain_glue_v1_on_the_cpu(case):
     assert bool(torch.isfinite(g).all()) and bool((g != 0).any())
 
 
-def _glue_v1_calls(fn):
-    before = tracing.counters()
-    fn()
-    after = tracing.counters()
-    return tuple(after.get(k, {}).get("calls", 0)
-                 - before.get(k, {}).get("calls", 0)
-                 for k in ("decoder_v1.glue_fused", "decoder_v1.glue_plain"))
-
-
 def test_v1_model_counts_its_glue_as_plain_on_the_cpu():
-    """On the CPU each V1 level counts its glue as plain, one a level and
-    frame: 6 a streaming frame (no grad) of the six-level model, and one a
-    level and frame of a training window (grad)."""
+    """On the CPU the V1 model runs the plain glue in a streaming frame (no
+    grad) of the six-level model and in a training window (grad): each
+    equals the same call with the decoder's wrappers swapped for the plain
+    versions bit for bit, and no glue kernel launches
+    (``testing.assert_runs_plain_glue``)."""
     cfg = ModelConfig(encoder_channels=(4, 4, 4, 4, 4, 4))
     model = M4DepthV1(cfg, device="cpu", seed=0)
     b, hw, T = 1, 128, 2
@@ -251,7 +248,6 @@ def test_v1_model_counts_its_glue_as_plain_on_the_cpu():
     f = torch.full((b, 2), hw / 2)
     cam = Camera(f, f.clone())
     state = init_state(cfg, b, hw, hw, device="cpu")
-    assert _glue_v1_calls(lambda: model.step(
-        state, rgb[:, 0], rot[:, 0], trans[:, 0], cam,
-        torch.tensor([True]))) == (0, 6)
-    assert _glue_v1_calls(lambda: model(rgb, rot, trans, cam)) == (0, T * 6)
+    assert_runs_plain_glue(lambda: model.step(
+        state, rgb[:, 0], rot[:, 0], trans[:, 0], cam, torch.tensor([True])))
+    assert_runs_plain_glue(lambda: model(rgb, rot, trans, cam))

@@ -13,10 +13,12 @@ to what the eager steps and the JAX package's jitted steps compute:
 * the compiled serving chain equals the eager ``model.step`` chain bit
   for bit, and the JAX jitted step at the tolerances of
   ``tests/test_torch_model.py``;
-* the compiled train step's Adam (a tensor learning rate and device step
-  counts) over the cosine warm-up, against the eager step and the JAX
-  jitted step at the tolerances of ``tests/test_torch_train.py``;
-* checkpoints cross between the eager and the compiled steps.
+* the train steps' one Adam update (a tensor learning rate and device
+  step counts) over the cosine warm-up against optax, and the compiled
+  train step against the eager one bit for bit and the JAX jitted step at
+  the tolerances of ``tests/test_torch_train.py``;
+* checkpoints cross between the eager and the compiled steps bit for
+  bit.
 
 The card's side (capture, replay, recapture) is in
 ``tests/test_torch_cuda.py``.
@@ -288,14 +290,13 @@ def assert_params_close(got, want, applied_lr, what):
 
 
 def test_tensor_lr_optimizer_matches_eager_and_optax():
-    """The compiled step's update (``Optimizer.apply_gradients_at``: the
-    clip, then Adam at a device learning rate with device step counts)
+    """The update every train step runs (``Optimizer.apply_gradients``:
+    the clip, then Adam at a device learning rate with device step counts)
     over four updates that cross the cosine schedule's end of warm-up
-    (counts 198 to 201), on the same gradients as the eager
-    ``apply_gradients`` and ``optax.chain(clip_by_global_norm,
-    adam(schedule))`` (``tests/test_torch_train.py``'s learning rate and
-    tolerances: the norm to rtol 1e-5, the weights to rtol 1e-5, atol
-    1e-8; optax takes 1 - 0.999^t in float32)."""
+    (counts 198 to 201), against ``optax.chain(clip_by_global_norm,
+    adam(schedule))`` on the same gradients (``tests/test_torch_train.py``'s
+    learning rate and tolerances: the norm to rtol 1e-5, the weights to
+    rtol 1e-5, atol 1e-8; optax takes 1 - 0.999^t in float32)."""
     import optax
 
     from m4depth_tpu.train.step import make_lr_schedule as jax_schedule
@@ -304,14 +305,12 @@ def test_tensor_lr_optimizer_matches_eager_and_optax():
     lr, clip, start = 1e-4, 0.5, 198
     tcfg = TrainConfig(learning_rate=lr, lr_schedule="cosine",
                        grad_clip_norm=clip, total_steps=1000)
-    models = {k: M4Depth(ModelConfig(**D2), device="cpu", seed=5)
-              for k in ("tensor", "eager")}
-    opts = {k: make_optimizer(m, tcfg) for k, m in models.items()}
-    for opt in opts.values():
-        opt.count = start
-    init_adam_state(opts["tensor"])
+    model = M4Depth(ModelConfig(**D2), device="cpu", seed=5)
+    opt = make_optimizer(model, tcfg)
+    opt.count = start
+    init_adam_state(opt)
     jparams = {n: p.detach().numpy().copy()
-               for n, p in models["eager"].named_parameters()}
+               for n, p in model.named_parameters()}
     tx = optax.chain(optax.clip_by_global_norm(clip),
                      optax.adam(jax_schedule(lr, "cosine", 1000)))
     jstate = jax.tree_util.tree_map(
@@ -323,37 +322,51 @@ def test_tensor_lr_optimizer_matches_eager_and_optax():
     rng = np.random.RandomState(0)
     for i in range(4):
         grads = {n: (rng.randn(*p.shape) * 0.05).astype(np.float32)
-                 for n, p in models["eager"].named_parameters()}
-        for m in models.values():
-            for n, p in m.named_parameters():
-                p.grad = _t(grads[n]).clone()
-        device_lr.fill_(opts["tensor"].lr_schedule(opts["tensor"].count))
-        norm = opts["tensor"].apply_gradients_at(device_lr)
-        opts["tensor"].count += 1
-        want = opts["eager"].apply_gradients()
-        np.testing.assert_allclose(float(norm), float(want), rtol=1e-5)
+                 for n, p in model.named_parameters()}
+        for n, p in model.named_parameters():
+            p.grad = _t(grads[n]).clone()
+        device_lr.fill_(opt.lr_schedule(opt.count))
+        norm = opt.apply_gradients(device_lr)
+        opt.count += 1
+        np.testing.assert_allclose(float(norm),
+                                   float(optax.global_norm(grads)),
+                                   rtol=1e-5)
         updates, jstate = jax.jit(tx.update)(grads, jstate, jparams)
         jparams = optax.apply_updates(jparams, updates)
-        for n, p in models["tensor"].named_parameters():
-            q = dict(models["eager"].named_parameters())[n]
-            np.testing.assert_allclose(p.detach().numpy(),
-                                       q.detach().numpy(), rtol=1e-5,
-                                       atol=1e-8, err_msg=f"{n} update {i}")
+        for n, p in model.named_parameters():
             np.testing.assert_allclose(p.detach().numpy(),
                                        np.asarray(jparams[n]), rtol=1e-5,
                                        atol=1e-8,
                                        err_msg=f"{n} update {i}, optax")
-    assert {float(s["step"]) for s in opts["tensor"].adam.state.values()} \
-        == {4.0}
+    assert {float(s["step"]) for s in opt.adam.state.values()} == {4.0}
+
+
+def assert_same_train_state(got: TrainState, want: TrainState, what):
+    """Two train states bit for bit: the weights, the Adam state (its step
+    counts included), the groups' rates and the schedule's count."""
+    a, b = got.state_dict(), want.state_dict()
+    assert a["count"] == b["count"], what
+    assert a["model"].keys() == b["model"].keys(), what
+    for n, t in b["model"].items():
+        assert torch.equal(a["model"][n], t), f"{what}: {n}"
+    assert a["adam"]["param_groups"] == b["adam"]["param_groups"], what
+    assert a["adam"]["state"].keys() == b["adam"]["state"].keys(), what
+    for i, state in b["adam"]["state"].items():
+        assert a["adam"]["state"][i].keys() == state.keys(), what
+        for k, t in state.items():
+            assert torch.equal(a["adam"]["state"][i][k], t), \
+                f"{what}: Adam state {i} {k}"
 
 
 def test_compiled_train_step_matches_eager_and_jax():
     """Three whole steps from the cosine schedule's start (rates 0, lr/200
     and 2 lr/200: a rate frozen at the first step's would leave the
-    weights where they are), clip 0.5: each step's scalars against the
-    eager step's and the JAX jitted step's (``tests/test_torch_train.py``:
-    loss and RMSE_log rtol 1e-5, the gradient norm rtol 1e-3 against
-    JAX), and the weights after each against both runs'."""
+    weights where they are), clip 0.5: the compiled and the eager step run
+    the same code on the CPU, so after each step their scalars, weights
+    and Adam state are equal bit for bit; each step's scalars against the
+    JAX jitted step's (``tests/test_torch_train.py``: loss and RMSE_log
+    rtol 1e-5, the gradient norm rtol 1e-3), and the weights after each
+    against its."""
     from m4depth_tpu_torch.interop import state_dict_from_jax
 
     lr, clip = 1e-3, 0.5
@@ -366,48 +379,56 @@ def test_compiled_train_step_matches_eager_and_jax():
     jstep = jax.jit(jax_train_step(jmodel))
     tcfg = TrainConfig(learning_rate=lr, lr_schedule="cosine",
                        grad_clip_norm=clip, total_steps=1000)
-    models, steps = {}, {}
+    states, steps = {}, {}
     for name, make in (("compiled", compile_train_step),
                        ("eager", make_train_step)):
-        models[name] = M4Depth(ModelConfig(**D2), device="cpu")
-        load_jax_params(models[name],
-                        jax.device_get(jstate.params)["params"])
-        steps[name] = make(models[name], make_optimizer(models[name], tcfg))
-    start = [p.detach().clone() for p in models["compiled"].parameters()]
+        model = M4Depth(ModelConfig(**D2), device="cpu")
+        load_jax_params(model, jax.device_get(jstate.params)["params"])
+        states[name] = TrainState(model, make_optimizer(model, tcfg))
+        steps[name] = make(model, states[name].optimizer)
+    model = states["compiled"].model
+    start = [p.detach().clone() for p in model.parameters()]
     applied = 0.0
     for i in range(3):
         got = steps["compiled"](batch)
         want = steps["eager"](batch)
         jstate, jout = jstep(jstate, np_batch)
+        assert got.keys() == want.keys()
+        for k, v in want.items():
+            assert torch.equal(got[k], v), f"{k} {i}"
+        assert_same_train_state(states["compiled"], states["eager"],
+                                f"step {i}")
         for k in ("loss", "RMSE_log"):
-            for ref in (want[k], jout[k]):
-                np.testing.assert_allclose(float(got[k]), float(ref),
-                                           rtol=1e-5, err_msg=f"{k} {i}")
-        np.testing.assert_allclose(float(got["grad_norm"]),
-                                   float(want["grad_norm"]), rtol=1e-5)
+            np.testing.assert_allclose(float(got[k]), float(jout[k]),
+                                       rtol=1e-5, err_msg=f"{k} {i}")
         np.testing.assert_allclose(float(got["grad_norm"]),
                                    float(jout["grad_norm"]), rtol=1e-3)
         applied += tcfg.learning_rate * i / 200
         jparams = state_dict_from_jax(
-            jax.device_get(jstate.params)["params"], models["eager"])
-        named = dict(models["compiled"].named_parameters())
-        assert_params_close(named.values(), models["eager"].parameters(),
-                            applied, f"step {i} against the eager step")
+            jax.device_get(jstate.params)["params"], model)
+        named = dict(model.named_parameters())
         assert_params_close(named.values(), [jparams[n] for n in named],
                             applied, f"step {i} against JAX")
     moved = max(float((p.detach() - s).abs().max())
-                for p, s in zip(models["compiled"].parameters(), start))
+                for p, s in zip(model.parameters(), start))
     assert moved > 0.5 * applied
 
 
 def test_checkpoints_cross_between_eager_and_compiled():
     """Two eager steps saved and loaded into a compiled step, and two
-    compiled steps saved and loaded into an eager step: each resumed
-    run's next two steps match the run that went on without a save (two
-    Adam arithmetics: float32 rounding)."""
+    compiled steps saved and loaded into an eager step: each resumed run's
+    next two steps equal the run that went on without a save, bit for bit
+    (both steps run one Adam update). A saved Adam state has the layout
+    that ``torch.optim.Adam``'s own ``step`` writes, its step counts CPU
+    float32 scalars, so a checkpoint written by it loads too."""
     tcfg = TrainConfig(learning_rate=1e-3, lr_schedule="cosine",
                        grad_clip_norm=0.5)
     batch = window(seed=5)
+    ref = torch.nn.Parameter(torch.zeros(2))
+    ref.grad = torch.ones(2)
+    adam = torch.optim.Adam([ref])
+    adam.step()
+    torch_state = adam.state_dict()["state"][0]
 
     def run(first, then, n=2):
         model = M4Depth(ModelConfig(**D3), device="cpu", seed=4)
@@ -416,6 +437,11 @@ def test_checkpoints_cross_between_eager_and_compiled():
         for _ in range(n):
             step(batch)
         saved = TrainState(model, opt).state_dict()
+        for state in saved["adam"]["state"].values():
+            assert state.keys() == torch_state.keys()
+            assert (state["step"].dtype, state["step"].device,
+                    state["step"].dim()) == (torch_state["step"].dtype,
+                                             torch_state["step"].device, 0)
         resumed = M4Depth(ModelConfig(**D3), device="cpu", seed=9)
         ropt = make_optimizer(resumed, tcfg)
         TrainState(resumed, ropt).load_state_dict(saved)
@@ -423,12 +449,12 @@ def test_checkpoints_cross_between_eager_and_compiled():
         rstep = then(resumed, ropt)
         straight = [step(batch) for _ in range(n)]
         again = [rstep(batch) for _ in range(n)]
-        for a, b in zip(straight, again):
-            np.testing.assert_allclose(float(a["loss"]), float(b["loss"]),
-                                       rtol=1e-5)
-        applied = sum(opt.lr_schedule(c) for c in range(n, 2 * n))
-        assert_params_close(model.parameters(), resumed.parameters(),
-                            applied, f"{first.__name__} to {then.__name__}")
+        for i, (a, b) in enumerate(zip(straight, again)):
+            for k, v in a.items():
+                assert torch.equal(b[k], v), f"{k} {i}"
+        what = f"{first.__name__} to {then.__name__}"
+        assert_same_train_state(TrainState(resumed, ropt),
+                                TrainState(model, opt), what)
         return TrainState(resumed, ropt).state_dict()
 
     from_eager = run(make_train_step, compile_train_step)

@@ -9,6 +9,7 @@ import json
 import pytest
 import torch
 
+from m4depth_tpu_torch.ops import glue_launches
 from m4depth_tpu_torch.tools import (
     fps,
     io_bench,
@@ -43,9 +44,12 @@ def test_fps_with_profile(capsys, tmp_path, model):
                             "--log_dir", str(tmp_path)]) == 0
     out = capsys.readouterr().out
     assert "fps=" in out and "ms/frame=" in out and f"model={model}" in out
-    # on the CPU every level runs its family's plain glue
-    family = "decoder_v1" if model == "m4depth-v1" else "decoder"
-    assert f"{family} kernels 0, plain 0" not in out
+    # on the CPU every level runs its family's plain glue: no glue kernel
+    # launches
+    line = next(x for x in out.splitlines()
+                if x.startswith("glue kernel launches a frame"))
+    counts = dict(x.split() for x in line.split(": ", 1)[1].split(", "))
+    assert counts == {name: "0" for name in glue_launches()}
     assert "device time: not measured" in out      # no device on the CPU
     assert list(tmp_path.glob("trace-*.json"))
 
@@ -54,7 +58,9 @@ def test_train_prof(capsys, tmp_path):
     argv = TINY + ["--batch", "1", "--seq", "2", "--steps", "1",
                    "--log_dir", str(tmp_path)]
     assert train_prof.main(argv) == 0
-    assert "train step:" in capsys.readouterr().out
+    out = capsys.readouterr().out
+    assert "train step:" in out
+    assert "glue kernel launches a step over the timed calls: " in out
     assert train_prof.main(argv + ["--remat", "--remat_policy", "all",
                                    "--no_profile"]) == 0
     assert "remat=True:all" in capsys.readouterr().out

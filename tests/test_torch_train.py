@@ -36,6 +36,7 @@ from m4depth_tpu_torch.train import (
     make_train_step,
     make_windowed_eval_step,
 )
+from m4depth_tpu_torch.train.step import init_adam_state
 
 # each level's channels divide into its cuts (1, 2, 2, 4)
 D4 = dict(num_levels=4, encoder_channels=(8, 12, 16, 16),
@@ -249,6 +250,16 @@ def test_train_step_comparison_rule():
 # -- optimiser ---------------------------------------------------------------
 
 
+def _update(opt):
+    """One ``Optimizer.apply_gradients`` as a train step's host side runs
+    it: at the schedule's rate for ``count``, as a 0-d tensor, then
+    ``count += 1``. Returns the gradient norm."""
+    init_adam_state(opt)
+    norm = opt.apply_gradients(torch.tensor(opt.lr_schedule(opt.count)))
+    opt.count += 1
+    return norm
+
+
 def _random_grads(model, seed):
     rng = np.random.RandomState(seed)
     return {n: (rng.randn(*p.shape) * 0.05).astype(np.float32)
@@ -276,7 +287,7 @@ def test_optimizer_matches_optax(clip):
         jparams = optax.apply_updates(jparams, updates)
         for n, prm in model.named_parameters():
             prm.grad = _t(grads[n]).clone()
-        norm = opt.apply_gradients()
+        norm = _update(opt)
         np.testing.assert_allclose(norm.item(),
                                    float(optax.global_norm(grads)),
                                    rtol=1e-5)
@@ -296,7 +307,7 @@ def test_clip_matches_optax(max_norm):
         model, TrainConfig(learning_rate=0.0, grad_clip_norm=max_norm))
     for n, prm in model.named_parameters():
         prm.grad = _t(grads[n]).clone()
-    opt.apply_gradients()
+    _update(opt)
     for n, prm in model.named_parameters():
         np.testing.assert_allclose(prm.grad.numpy(), np.asarray(ref[n]),
                                    rtol=1e-6, atol=1e-9, err_msg=n)
