@@ -17,7 +17,7 @@ from torch.utils.checkpoint import checkpoint
 
 from m4depth_tpu_torch.config import ModelConfig
 from m4depth_tpu_torch.geometry import Camera
-from m4depth_tpu_torch.models.encoder import Conv3x3, leaky_relu
+from m4depth_tpu_torch.models.encoder import Conv3x3
 from m4depth_tpu_torch.ops import (
     parallax_sweeping_cv_fused,
     spatial_cost_volume_fused,
@@ -52,30 +52,29 @@ class LevelEstimate(NamedTuple):
 
 
 class DispRefiner(nn.Module):
-    """Parallax refinement subnetwork: 3 prep convs + 4 estimation convs."""
+    """Parallax refinement subnetwork: 3 prep convs + 4 estimation convs,
+    each followed by a leaky relu but the last."""
 
     def __init__(self, cfg: ModelConfig, in_channels: int):
         super().__init__()
         self.cfg = cfg
+        slope = cfg.leaky_slope
         prep_in = (in_channels,) + tuple(cfg.refiner_prep_channels[:-1])
         self.prep = nn.ModuleList(
-            Conv3x3(cin, ch)
+            Conv3x3(cin, ch, slope=slope)
             for cin, ch in zip(prep_in, cfg.refiner_prep_channels))
         est_in = ((cfg.refiner_prep_channels[-1],)
                   + tuple(cfg.refiner_est_channels[:-1]))
+        n_est = len(cfg.refiner_est_channels)
         self.est = nn.ModuleList(
-            Conv3x3(cin, ch)
-            for cin, ch in zip(est_in, cfg.refiner_est_channels))
+            Conv3x3(cin, ch, slope=slope if i < n_est - 1 else None)
+            for i, (cin, ch) in enumerate(zip(est_in,
+                                              cfg.refiner_est_channels)))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        slope = self.cfg.leaky_slope
         x = x.to(self.cfg.torch_compute_dtype)
-        for conv in self.prep:
-            x = leaky_relu(conv(x), slope)
-        for i, conv in enumerate(self.est):
+        for conv in (*self.prep, *self.est):
             x = conv(x)
-            if i < len(self.est) - 1:
-                x = leaky_relu(x, slope)
         return x
 
 

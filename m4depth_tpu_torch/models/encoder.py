@@ -2,9 +2,11 @@
 
 Each level is a stride-1 3x3 conv (with domain-invariant normalization at
 level 0), leaky-relu, a stride-2 3x3 conv and leaky-relu; output i has
-stride 2**(i+1). Tensors are NHWC at every interface; the convs see them
-as channels-last NCHW views, which cuDNN takes without a copy, and return
-contiguous NHWC tensors on any conv backend.
+stride 2**(i+1). Each conv layer applies the leaky-relu that follows it
+(``Conv3x3``'s slope), except level 0's stride-1 conv, which the
+normalization follows. Tensors are NHWC at every interface; the convs see
+them as channels-last NCHW views, which cuDNN takes without a copy, and
+return contiguous NHWC tensors on any conv backend.
 
 The JAX ``FirstConv`` (a TPU lane trick: 9 shifts and a matmul) is the same
 function as an ordinary 3x3 conv with the same kernel, which is what runs
@@ -14,13 +16,14 @@ here.
 from __future__ import annotations
 
 import math
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
 from m4depth_tpu_torch.config import ModelConfig
+from m4depth_tpu_torch.ops.conv_epilogue import conv3x3
 
 # flax's he_normal: a normal truncated at 2 sigma, rescaled to unit variance
 _TRUNC_STD = 0.87962566103423978
@@ -42,15 +45,21 @@ def _same_pad(n: int, stride: int) -> Tuple[int, int]:
 
 
 class Conv3x3(nn.Module):
-    """3x3 convolution on NHWC tensors with TF 'SAME' padding.
+    """3x3 convolution on NHWC tensors with TF 'SAME' padding, and the
+    leaky ReLU of ``slope`` that follows it in the architecture (None: no
+    activation follows).
 
     Parameters are float32 (weight OIHW); the conv runs in the input's
-    dtype, as flax casts its kernel to the compute dtype.
+    dtype, as flax casts its kernel to the compute dtype. The layer runs
+    ``ops.conv_epilogue.conv3x3``: on CUDA tensors the bias and the
+    activation are one kernel on the conv's output.
     """
 
-    def __init__(self, in_channels: int, out_channels: int, stride: int = 1):
+    def __init__(self, in_channels: int, out_channels: int, stride: int = 1,
+                 slope: Optional[float] = None):
         super().__init__()
         self.stride = stride
+        self.slope = slope
         self.weight = nn.Parameter(torch.empty(out_channels, in_channels, 3, 3))
         self.bias = nn.Parameter(torch.zeros(out_channels))
 
@@ -69,13 +78,8 @@ class Conv3x3(nn.Module):
         if (pt, pl) != (pb, pr):
             x = F.pad(x, (0, 0, pl, pr, pt, pb))
             pt = pl = 0
-        y = F.conv2d(x.permute(0, 3, 1, 2), self.weight.to(x.dtype),
-                     self.bias.to(x.dtype), stride=self.stride,
-                     padding=(pt, pl))
-        # cuDNN returns channels-last here, so this copies nothing; a
-        # backend that returns NCHW (cuDNN off, a strided input) would
-        # otherwise hand the cost-volume kernels a strided view
-        return y.permute(0, 2, 3, 1).contiguous()
+        return conv3x3(x, self.weight, self.bias, self.stride, (pt, pl),
+                       self.slope)
 
 
 class DomainNorm(nn.Module):
@@ -107,22 +111,26 @@ class Encoder(nn.Module):
     def __init__(self, cfg: ModelConfig):
         super().__init__()
         self.cfg = cfg
+        slope = cfg.leaky_slope
         ins = (3,) + tuple(cfg.channels[:-1])
-        self.conv_s1 = nn.ModuleList(
-            Conv3x3(cin, ch) for cin, ch in zip(ins, cfg.channels))
-        self.conv_s2 = nn.ModuleList(
-            Conv3x3(ch, ch, stride=2) for ch in cfg.channels)
         self.dinl = DomainNorm(cfg.channels[0]) if cfg.ablation.dinl else None
+        # level 0's stride-1 conv is followed by the normalization, whose
+        # output the activation then takes
+        self.conv_s1 = nn.ModuleList(
+            Conv3x3(cin, ch,
+                    slope=None if i == 0 and self.dinl is not None else slope)
+            for i, (cin, ch) in enumerate(zip(ins, cfg.channels)))
+        self.conv_s2 = nn.ModuleList(
+            Conv3x3(ch, ch, stride=2, slope=slope) for ch in cfg.channels)
 
     def forward(self, images: torch.Tensor) -> List[torch.Tensor]:
         """images: [b, h, w, 3] in [0, 1] -> per-level NHWC feature maps."""
-        slope = self.cfg.leaky_slope
         x = images.to(self.cfg.torch_compute_dtype)
         outputs = []
         for i, (conv_s1, conv_s2) in enumerate(zip(self.conv_s1, self.conv_s2)):
             x = conv_s1(x)
             if self.dinl is not None and i == 0:
-                x = self.dinl(x)
-            x = leaky_relu(conv_s2(leaky_relu(x, slope)), slope)
+                x = leaky_relu(self.dinl(x), self.cfg.leaky_slope)
+            x = conv_s2(x)
             outputs.append(x)
         return outputs

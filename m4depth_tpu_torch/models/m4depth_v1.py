@@ -38,7 +38,7 @@ from m4depth_tpu_torch.geometry import (
     resize_nearest,
 )
 from m4depth_tpu_torch.models.decoder import LevelState
-from m4depth_tpu_torch.models.encoder import Conv3x3, leaky_relu
+from m4depth_tpu_torch.models.encoder import Conv3x3
 from m4depth_tpu_torch.models.m4depth import Device, ModelState
 from m4depth_tpu_torch.ops import spatial_cost_volume_fused
 from m4depth_tpu_torch.ops.glue_v1 import (
@@ -59,18 +59,19 @@ class EncoderV1(nn.Module):
     def __init__(self, cfg: ModelConfig):
         super().__init__()
         self.cfg = cfg
+        slope = cfg.leaky_slope
         ins = (3,) + tuple(cfg.channels[:-1])
         self.conv_s2 = nn.ModuleList(
-            Conv3x3(cin, ch, stride=2) for cin, ch in zip(ins, cfg.channels))
-        self.conv_s1 = nn.ModuleList(Conv3x3(ch, ch) for ch in cfg.channels)
+            Conv3x3(cin, ch, stride=2, slope=slope)
+            for cin, ch in zip(ins, cfg.channels))
+        self.conv_s1 = nn.ModuleList(Conv3x3(ch, ch, slope=slope)
+                                     for ch in cfg.channels)
 
     def forward(self, images: torch.Tensor) -> List[torch.Tensor]:
-        slope = self.cfg.leaky_slope
         x = images.to(self.cfg.torch_compute_dtype)
         outputs = []
         for conv_s2, conv_s1 in zip(self.conv_s2, self.conv_s1):
-            x = leaky_relu(conv_s2(x), slope)
-            x = leaky_relu(conv_s1(x), slope)
+            x = conv_s1(conv_s2(x))
             outputs.append(x)
         return outputs
 
@@ -89,9 +90,12 @@ class DecoderLevelV1(nn.Module):
         # features, cost volume, two log depths, rotation, translation and
         # the pixel coordinates
         cin = channels + side * side + 2 + rot_dim + 3 + 2
+        # each conv followed by a leaky relu, the last one's inverted by the
+        # glue after the refiner
         self.convs = nn.ModuleList(
-            Conv3x3(i, o) for i, o in zip((cin,) + V1_REFINER_CHANNELS[:-1],
-                                          V1_REFINER_CHANNELS))
+            Conv3x3(i, o, slope=cfg.leaky_slope)
+            for i, o in zip((cin,) + V1_REFINER_CHANNELS[:-1],
+                            V1_REFINER_CHANNELS))
 
     def forward(
         self,
@@ -120,7 +124,7 @@ class DecoderLevelV1(nn.Module):
                                    trans, camera, scale)
         tracing.mark(f"refiner{self.level}", x.device)
         for conv in self.convs:
-            x = leaky_relu(conv(x), cfg.leaky_slope)
+            x = conv(x)
         tracing.mark(f"glue{self.level}", x.device)
         depth = glue_v1_finish_fused(x, cfg.leaky_slope)
         return depth, depth

@@ -29,7 +29,7 @@ from typing import Callable, Counter, Dict, Iterable, Sequence
 CSRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 SOURCES = ("sncv.cu", "dscv.cu", "mark.cu", "glue.cu", "glue_backward.cu",
-           "glue_v1.cu")
+           "glue_v1.cu", "conv_epilogue.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 BUILD_TIMEOUT_S = 600

@@ -1,5 +1,5 @@
 // Device helpers shared by the kernels (sncv.cu, dscv.cu, glue.cu,
-// glue_backward.cu, glue_v1.cu): input types (float32, bfloat16, float16)
+// glue_backward.cu, glue_v1.cu, conv_epilogue.cu): input types (float32, bfloat16, float16)
 // widened to float32 and float32 rounded to them, 16-byte vector loads and
 // stores, the rotation matrix and the epipolar terms of a pixel (dscv.cu,
 // glue.cu, glue_v1.cu), the glues' clamp, log and TFv1 bilinear resize as

@@ -102,6 +102,14 @@ GLUE_ULPS = 1
 GLUE_BWD_TOL = {torch.float32: (1e-5, 1e-5),
                 torch.bfloat16: (2.0 ** -7, 2.0 ** -7)}
 
+# The convs' epilogue (ops/csrc/conv_epilogue.cu): its forward and its dx
+# equal the plain chain's on the card bit for bit. Its bias gradient sums
+# dx in float32 in a fixed order, a thread's vectors, then the block's
+# lanes, then the blocks' rows: a few hundred partial sums in sequence at
+# the model's shapes, each adding at most 2^-24 of the running sum, so it
+# lies within this share of sum |dx| of the exact sum.
+EPILOGUE_BIAS_RTOL = 2.0 ** -13
+
 # Backward kernels against autograd of the plain forward, as (rtol, atol as
 # a fraction of the largest reference value).
 #   float32: the same products summed in another order, the DSCV's dc2 and
@@ -414,6 +422,22 @@ def plain_glue():
     finally:
         for (module, n, _), fn in zip(swaps, saved):
             setattr(module, n, fn)
+
+
+@contextlib.contextmanager
+def plain_epilogue():
+    """Every ``Conv3x3`` runs the plain chain (``F.conv2d`` with its bias,
+    then ``F.leaky_relu``) in place of the conv without bias and the
+    epilogue kernels, on any device and in any grad mode."""
+    from m4depth_tpu_torch.models import encoder
+    from m4depth_tpu_torch.ops import conv_epilogue
+
+    saved = encoder.conv3x3
+    encoder.conv3x3 = conv_epilogue.conv3x3_plain
+    try:
+        yield
+    finally:
+        encoder.conv3x3 = saved
 
 
 def assert_runs_plain_glue(call: Callable[[], Any]) -> None:

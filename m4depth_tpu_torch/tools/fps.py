@@ -9,11 +9,11 @@ and with it the epipolar field), through ``parallel.serving.compile_step``
 (one CUDA graph replayed a frame on the card, as the JAX tool times its
 jitted step). After 10 frames of warm-up, the best of 3 runs of ``--n``
 frames, each ending in a synchronise, gives ms/frame and frames/s; each
-decoder-glue kernel's launches a frame over those runs come from
-``ops.glue_launches``, the host's time in the compiled call a frame from
-``utils.tracing``'s ``compiled.replays`` counter (prepare, launch,
-finish), and the eager first call's and the capture's from
-``compiled.warmups`` and ``compiled.captures``.
+decoder-glue kernel's and conv-epilogue kernel's launches a frame over
+those runs come from ``ops.kernel_launches``, the host's time in the
+compiled call a frame from ``utils.tracing``'s ``compiled.replays``
+counter (prepare, launch, finish), and the eager first call's and the
+capture's from ``compiled.warmups`` and ``compiled.captures``.
 
 ``--profile`` then records ``PROFILED_FRAMES`` replayed frames with
 ``utils.profiling.device_trace`` and splits their device time by the
@@ -44,7 +44,7 @@ from m4depth_tpu_torch import resolve_device
 from m4depth_tpu_torch.config import DTYPES, ModelConfig
 from m4depth_tpu_torch.geometry import Camera
 from m4depth_tpu_torch.models import M4Depth, M4DepthV1, init_state
-from m4depth_tpu_torch.ops import glue_launches
+from m4depth_tpu_torch.ops import kernel_launches
 from m4depth_tpu_torch.parallel.serving import compile_step
 from m4depth_tpu_torch.utils import tracing
 from m4depth_tpu_torch.utils.profiling import device_breakdown, device_trace
@@ -54,6 +54,9 @@ REPEATS = 3
 PROFILED_FRAMES = 10
 TOP_OPS = 16
 FAMILIES = {"m4depth": M4Depth, "m4depth-v1": M4DepthV1}
+# the hand-written kernels whose launches a frame or step the tools print,
+# by family: the prefix of their C entry points
+LAUNCH_FAMILIES = {"glue": "glue", "conv epilogue": "conv_epilogue"}
 
 
 def parse_args(argv=None):
@@ -153,12 +156,20 @@ def print_breakdown(r: dict, unit: str) -> None:
         print(f"  {us:10.1f} us {100 * us / busy:5.1f}%  {name} ({stage})")
 
 
-def print_dispatch(d: dict, glue: dict, unit: str) -> None:
-    """The glue kernels' launches a ``unit`` (``glue``), the host's time in
-    the compiled call a ``unit``, and the warm-up's and the capture's
-    (``dispatch``)."""
-    print(f"glue kernel launches a {unit} over the timed calls: " + ", ".join(
-        f"{name} {n:g}" for name, n in glue.items()))
+def launches(since: Optional[dict] = None, calls: int = 1) -> dict:
+    """``ops.kernel_launches`` of each of ``LAUNCH_FAMILIES``, by family:
+    so far, or since ``since`` (an earlier result) over ``calls``."""
+    return {family: kernel_launches(prefix, since and since[family], calls)
+            for family, prefix in LAUNCH_FAMILIES.items()}
+
+
+def print_dispatch(d: dict, launched: dict, unit: str) -> None:
+    """Each family's kernel launches a ``unit`` (``launches``), the host's
+    time in the compiled call a ``unit``, and the warm-up's and the
+    capture's (``dispatch``)."""
+    for family, counts in launched.items():
+        print(f"{family} kernel launches a {unit} over the timed calls: "
+              + ", ".join(f"{name} {n:g}" for name, n in counts.items()))
     if d.get("ns") is None:
         print("host time in the compiled call: no replay timed")
         return
@@ -189,14 +200,14 @@ def dispatch(start: dict, before: dict, after: dict,
 
 def run(a) -> dict:
     """ms/frame and frames/s, the host's time in the compiled call a frame
-    (``dispatch``), the glue kernels' launches a frame, and with
+    (``dispatch``), the glue and epilogue kernels' launches a frame, and with
     ``--profile`` ``device_breakdown``'s result over replayed frames."""
     stream, dev = make_stream(a)
     start = tracing.counters()
     depth = stream(1, new_traj=True)
     stream(WARMUP_FRAMES)
     best = float("inf")
-    before, glue = tracing.counters(), glue_launches()
+    before, launched = tracing.counters(), launches()
     for _ in range(REPEATS):
         t0 = time.perf_counter()
         depth = stream(a.n)
@@ -204,7 +215,7 @@ def run(a) -> dict:
     out = dict(ms_per_frame=1e3 * best / a.n, fps=a.n * a.batch / best,
                finite=bool(torch.isfinite(depth).all()), device=str(dev),
                dispatch=dispatch(start, before, tracing.counters()),
-               glue=glue_launches(glue, REPEATS * a.n))
+               launches=launches(launched, REPEATS * a.n))
     if a.profile:
         log_dir = a.log_dir or tempfile.mkdtemp(prefix="m4depth_fps_")
         with device_trace(log_dir) as trace:
@@ -222,7 +233,7 @@ def main(argv=None) -> int:
           f"model={a.model} batch={a.batch} size={h}x{w} levels={a.levels} "
           f"cv_dtype={a.cv_dtype} device={r['device']} (best of {REPEATS} "
           f"runs of {a.n} frames)", flush=True)
-    print_dispatch(r["dispatch"], r["glue"], "frame")
+    print_dispatch(r["dispatch"], r["launches"], "frame")
     if a.profile:
         print(f"trace: {r['trace']} ({PROFILED_FRAMES} replayed frames)")
         print_breakdown(r["breakdown"], "frame")

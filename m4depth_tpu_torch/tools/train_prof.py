@@ -6,11 +6,12 @@ as the JAX tool times its jitted step; d``--levels`` at ``--size``, batch
 ``--batch``, ``--seq`` frames, bfloat16 convs, ``--cv_dtype`` cost
 volumes, Adam at 1e-4, weights from seed 0, a seeded batch; ``--remat``
 with ``--remat_policy``): the first step, then the best of 3 runs of
-``--steps`` steps, each decoder-glue kernel's launches a step over those
-runs (``ops.glue_launches``), and the host's time in the compiled call a
-step, in the whole ``train_step`` call (``train.step``), its eager first
-call and its capture (``utils.tracing``'s counters). Then it records
-``PROFILED_STEPS`` replayed steps with ``utils.profiling.device_trace``
+``--steps`` steps, each decoder-glue and conv-epilogue kernel's launches
+a step over those runs (``ops.kernel_launches``), and the host's time in
+the compiled call a step, in the whole ``train_step`` call
+(``train.step``), its eager first call and its capture
+(``utils.tracing``'s counters). Then it records ``PROFILED_STEPS``
+replayed steps with ``utils.profiling.device_trace``
 and splits their device time without overlap by the stage marks captured
 into the graph (``utils.tracing``): each device time point goes to the
 innermost device event open at it, and each event to the stage of the
@@ -44,9 +45,9 @@ from m4depth_tpu_torch.config import (
 )
 from m4depth_tpu_torch.models import M4Depth
 from m4depth_tpu_torch.testing import train_batch
-from m4depth_tpu_torch.ops import glue_launches
 from m4depth_tpu_torch.tools.fps import (
     dispatch,
+    launches,
     print_breakdown,
     print_dispatch,
 )
@@ -83,8 +84,8 @@ def parse_args(argv=None):
 
 def run(a) -> dict:
     """The first step's and the best ms/step, the last loss, the host's
-    time in the compiled call a step (``dispatch``), the glue kernels'
-    launches a step, and unless
+    time in the compiled call a step (``dispatch``), the glue and epilogue
+    kernels' launches a step, and unless
     ``--no_profile`` the breakdown (``device_breakdown``'s result, per
     replayed step)."""
     dev = resolve_device(a.device)
@@ -106,7 +107,7 @@ def run(a) -> dict:
     first_s = time.perf_counter() - t0
     steps(WARMUP_STEPS)
     best = float("inf")
-    before, glue = tracing.counters(), glue_launches()
+    before, launched = tracing.counters(), launches()
     for _ in range(REPEATS):
         t0 = time.perf_counter()
         loss = steps(a.steps)
@@ -114,7 +115,7 @@ def run(a) -> dict:
     out = dict(first_step_s=first_s, ms_per_step=1e3 * best, loss=loss,
                device=str(dev), dispatch=dispatch(
                    start, before, tracing.counters(), "train.step"),
-               glue=glue_launches(glue, REPEATS * a.steps))
+               launches=launches(launched, REPEATS * a.steps))
     if not a.no_profile:
         log_dir = a.log_dir or tempfile.mkdtemp(prefix="m4depth_train_prof_")
         with device_trace(log_dir) as trace:
@@ -134,7 +135,7 @@ def main(argv=None) -> int:
           f"{':' + a.remat_policy if a.remat else ''} device={r['device']}; "
           f"best of {REPEATS} runs of {a.steps}); loss {r['loss']:.5g}",
           flush=True)
-    print_dispatch(r["dispatch"], r["glue"], "step")
+    print_dispatch(r["dispatch"], r["launches"], "step")
     if "breakdown" in r:
         bd = r["breakdown"]
         print(f"trace: {r['trace']} ({PROFILED_STEPS} replayed steps)")

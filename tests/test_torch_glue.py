@@ -325,8 +325,9 @@ def test_fused_wrappers_run_the_plain_glue_on_the_cpu():
     assert bool(torch.isfinite(g).all()) and bool((g != 0).any())
 
 
+# ctypes names its 64-bit integer c_long where a long is 64 bits (Linux)
 _C_TYPES = {"const void*": "c_void_p", "void*": "c_void_p", "int": "c_int",
-            "float": "c_float"}
+            "float": "c_float", "long long": "c_long"}
 
 
 def _c_signature(source: str, symbol: str):

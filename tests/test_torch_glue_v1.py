@@ -27,7 +27,7 @@ from m4depth_tpu_torch.geometry import (
     resize_bilinear_v1,
     scale_camera,
 )
-from m4depth_tpu_torch.models import M4DepthV1, init_state, leaky_relu
+from m4depth_tpu_torch.models import M4DepthV1, init_state
 from m4depth_tpu_torch.models.m4depth_v1 import DecoderLevelV1
 from m4depth_tpu_torch.ops import (
     dense_image_warp,
@@ -151,8 +151,9 @@ def _chain(lvl: DecoderLevelV1, curr_f, state, deeper, rot, trans, camera,
         trans.reshape(b, 1, 1, 3).expand(b, h, w, 3).to(dt),
         coords[..., :2].expand(b, h, w, 2).to(dt),
     ], dim=-1)
+    # each conv applies its leaky relu
     for conv in lvl.convs:
-        x = leaky_relu(conv(x), cfg.leaky_slope)
+        x = conv(x)
     r["out"] = x
     x = x.float()
     x = torch.where(x > 0, x, x / cfg.leaky_slope)
